@@ -1,0 +1,155 @@
+"""The one worker pipeline behind every estimator (twin of ``repro.core.pipeline``, unsharded).
+
+Algorithm 1's per-machine schedule -- sufficient statistics, one
+eigendecomposition, the direction solve, the CLIME columns, the debias
+correction -- written once.  Machines are the leading axis of every
+tensor: ``xs`` (m, n1, d) gives (m, d, d) statistics, one batched
+``eigh`` and one launch per solve for all m machines.
+
+The mesh faces (``model_axis``) and the warm-carry ``full=True`` solves
+come with later slices of the port and raise here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.core.clime import solve_clime_columns, symmetrize_min
+from repro_torch.core.dantzig import NEXT_SLICE, DantzigConfig
+from repro_torch.core.solver_dispatch import solve_dantzig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.spectral import spectral_factor
+
+
+class HeadStats(NamedTuple):
+    """What a head hands the shared pipeline."""
+
+    sigma: torch.Tensor  # (..., d, d) pooled within-class covariance
+    rhs: torch.Tensor  # (..., d, K) direction right-hand sides
+    aux: Any  # head-specific stats (SuffStats)
+
+
+class SuffStats(NamedTuple):
+    """Per-machine sufficient statistics of the two-class sample."""
+
+    sigma: torch.Tensor  # (..., d, d) pooled intra-class covariance
+    mu1: torch.Tensor  # (..., d)
+    mu2: torch.Tensor  # (..., d)
+    n1: int
+    n2: int
+
+    @property
+    def mu_d(self) -> torch.Tensor:
+        return self.mu1 - self.mu2
+
+
+def suff_stats(x: torch.Tensor, y: torch.Tensor, use_kernel: bool | None = None) -> SuffStats:
+    """(Sigma_hat, mu1, mu2) from class samples x: (..., n1, d), y: (..., n2, d).
+
+    Sigma_hat = [sum (X_i-mu1)(X_i-mu1)^T + sum (Y_i-mu2)(Y_i-mu2)^T] / n
+
+    ``use_kernel=None`` takes the gram kernel (K1) when the samples are
+    on the card and the plain product elsewhere.
+    """
+    if use_kernel is None:
+        use_kernel = x.is_cuda
+    n1, n2 = x.shape[-2], y.shape[-2]
+    mu1 = x.mean(-2)
+    mu2 = y.mean(-2)
+    if use_kernel:
+        g1 = kops.gram(x, mu1)
+        g2 = kops.gram(y, mu2)
+    else:
+        xc = x - mu1.unsqueeze(-2)
+        yc = y - mu2.unsqueeze(-2)
+        g1 = xc.mT @ xc
+        g2 = yc.mT @ yc
+    sigma = (g1 + g2) / (n1 + n2)
+    return SuffStats(sigma, mu1, mu2, n1, n2)
+
+
+class BinaryHead(NamedTuple):
+    """The paper's two-sample head: K = 1, rhs = mu1 - mu2."""
+
+    use_kernel: bool | None = None
+
+    def stats(self, x: torch.Tensor, y: torch.Tensor) -> HeadStats:
+        s = suff_stats(x, y, self.use_kernel)
+        return HeadStats(s.sigma, s.mu_d.unsqueeze(-1), s)
+
+
+def debias(sigma: torch.Tensor, rhs: torch.Tensor, beta_hat: torch.Tensor,
+           theta_hat: torch.Tensor) -> torch.Tensor:
+    """beta_tilde = beta_hat - Theta^T (Sigma beta_hat - rhs)  (eq. 3.4).
+
+    ``rhs``/``beta_hat`` are (..., d) vectors or (..., d, K) blocks.
+    """
+    vector = beta_hat.ndim == sigma.ndim - 1
+    if vector:
+        rhs, beta_hat = rhs.unsqueeze(-1), beta_hat.unsqueeze(-1)
+    resid = sigma @ beta_hat - rhs
+    out = beta_hat - theta_hat.mT @ resid
+    return out[..., 0] if vector else out
+
+
+class WorkerSolves(NamedTuple):
+    """One machine batch's heavy lifting: statistics and both solves."""
+
+    stats: HeadStats
+    beta_hat: torch.Tensor  # (..., d, K) biased local direction block
+    theta: torch.Tensor  # (..., d, d) CLIME block
+
+
+def worker_solves(head, *data: torch.Tensor, lam, lam_prime,
+                  cfg: DantzigConfig = DantzigConfig(), model_axis: str | None = None,
+                  symmetrize: bool = False, full: bool = False) -> WorkerSolves:
+    """Run the machines' ADMM solves (direction block + CLIME columns)."""
+    hs = head.stats(*data)
+    return solves_from_stats(hs, lam=lam, lam_prime=lam_prime, cfg=cfg,
+                             model_axis=model_axis, symmetrize=symmetrize, full=full)
+
+
+def solves_from_stats(hs: HeadStats, *, lam, lam_prime, cfg: DantzigConfig = DantzigConfig(),
+                      model_axis: str | None = None, symmetrize: bool = False,
+                      full: bool = False) -> WorkerSolves:
+    """The solve body of :func:`worker_solves`, from pre-built statistics."""
+    if model_axis is not None:
+        raise NotImplementedError(
+            "the model-axis (sharded CLIME) worker comes with the port's mesh slice")
+    if full:
+        raise NotImplementedError(f"full=True {NEXT_SLICE}")
+    # ONE eigendecomposition for all machines: the direction solve and
+    # every CLIME column share this factor (it is rho- and lam-independent).
+    factor = spectral_factor(hs.sigma)
+    d = hs.rhs.shape[-2]
+    beta_hat = solve_dantzig(factor, hs.rhs, lam, cfg)
+    theta = solve_clime_columns(factor, torch.arange(d, device=hs.rhs.device), lam_prime, cfg)
+    if symmetrize:
+        theta = symmetrize_min(theta)
+    return WorkerSolves(stats=hs, beta_hat=beta_hat, theta=theta)
+
+
+def apply_correction(theta: torch.Tensor, valid, resid: torch.Tensor,
+                     model_axis: str | None = None) -> torch.Tensor:
+    """The (..., d, K) debias correction ``Theta^T resid`` (unsharded)."""
+    if model_axis is not None or valid is not None:
+        raise NotImplementedError(
+            "the masked model-axis gather comes with the port's mesh slice")
+    return theta.mT @ resid
+
+
+def worker_debiased(head, *data: torch.Tensor, lam, lam_prime,
+                    cfg: DantzigConfig = DantzigConfig(), symmetrize: bool = False):
+    """Every machine's debiased estimate of the (d, K) direction block.
+
+    ``data`` are the head's samples with machines on the leading axis
+    (``(xs, ys)`` for :class:`BinaryHead`).  Returns
+    ``(beta_tilde, beta_hat, stats)`` with (..., d, K) blocks.
+    """
+    ws = worker_solves(head, *data, lam=lam, lam_prime=lam_prime, cfg=cfg,
+                       symmetrize=symmetrize)
+    resid = ws.stats.sigma @ ws.beta_hat - ws.stats.rhs
+    correction = apply_correction(ws.theta, None, resid)
+    return ws.beta_hat - correction, ws.beta_hat, ws.stats

@@ -1,0 +1,110 @@
+"""One dispatch layer for every Dantzig/CLIME solve (twin of ``repro.core.solver_dispatch``).
+
+``scan``
+    The eager ADMM in :func:`repro_torch.core.dantzig.solve_dantzig_scan`,
+    selected when ``cfg.fused`` is False (the only path with adaptive rho).
+``fused`` / ``fused_blocked``
+    The fused kernel (K2) with all k columns of a machine in one block,
+    or tiled into column blocks by the Hopper blocking model
+    (:func:`repro_torch.kernels.dantzig_fused.pick_block_k`, or the
+    ``cfg.block_k`` override).
+
+Unlike the TPU, there is no capacity fallback from fused to scan: A and
+Q stream from L2, so ``cfg.fused=True`` means the kernel at every d
+where one column's state fits in shared memory, and an error beyond.
+Fused is fixed rho with no adaptation, so a silent switch to the scan
+would be different math.
+
+Every entry point accepts either the raw (..., d, d) matrix or its
+:class:`~repro_torch.kernels.spectral.SpectralFactor`, so the one
+eigendecomposition per worker is shared by all of its solves.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import dantzig as _dantzig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.dantzig_fused import (
+    SMEM_BYTES,
+    AdmmState,
+    max_block_k,
+    pick_block_k,
+)
+from repro_torch.kernels.ref import per_column
+from repro_torch.kernels.spectral import sigma_of
+
+
+class SolverChoice(NamedTuple):
+    """Solver selection for a (d, k) Dantzig batch."""
+
+    kind: str  # "scan" | "fused" | "fused_blocked"
+    block_k: int | None = None  # columns per block (fused paths)
+
+
+def select_solver(cfg: "_dantzig.DantzigConfig", d: int, k: int) -> SolverChoice:
+    """Pick the solver implementation for a (d, k) batch (the same on every device)."""
+    if not cfg.fused:
+        return SolverChoice("scan")
+    budget = SMEM_BYTES if cfg.vmem_budget is None else min(cfg.vmem_budget, SMEM_BYTES)
+    bk = pick_block_k(d, k, budget)
+    if cfg.block_k is not None:
+        bk = max(1, min(cfg.block_k, k, max_block_k(d, budget)))
+    return SolverChoice("fused" if bk >= k else "fused_blocked", bk)
+
+
+class SolveResult(NamedTuple):
+    """Everything a dispatched solve can hand back (filled by the K3 slice)."""
+
+    beta: torch.Tensor  # the sparse solution, trailing shape of b
+    rho: torch.Tensor  # (..., k) warm per-problem ADMM penalties
+    state: AdmmState  # full final state, resumable via `state=`
+    iters: torch.Tensor  # (k,) executed iterations per column
+
+
+def solve_dantzig(a, b: torch.Tensor, lam, cfg: "_dantzig.DantzigConfig | None" = None, *,
+                  rho=None, state: AdmmState | None = None) -> torch.Tensor:
+    """Solve a batch of Dantzig problems through the dispatched implementation.
+
+    ``a``: (..., d, d) PSD matrix or its SpectralFactor; ``b``: (..., d)
+    or (..., d, k); ``lam``: scalar, (k,) or (..., k); ``rho``: optional
+    per-column penalty (the fused kernel's operand, the scan's seed).
+    Returns beta shaped like ``b`` (broadcast to ``a``'s machines).
+    """
+    out, _ = solve_dantzig_with_rho(a, b, lam, cfg, rho=rho, state=state)
+    return out
+
+
+def solve_dantzig_with_rho(a, b: torch.Tensor, lam,
+                           cfg: "_dantzig.DantzigConfig | None" = None, *,
+                           rho=None, state: AdmmState | None = None):
+    """:func:`solve_dantzig` plus the final per-problem rho, (..., k)."""
+    if cfg is None:
+        cfg = _dantzig.DantzigConfig()
+    if cfg.tol is not None or state is not None:
+        raise NotImplementedError(f"cfg.tol and state {_dantzig.NEXT_SLICE}")
+    mat = sigma_of(a)
+    squeeze = b.ndim == mat.ndim - 1
+    b2 = b.unsqueeze(-1) if squeeze else b
+    d, k = b2.shape[-2:]
+    b2 = b2.expand(*mat.shape[:-2], d, k)
+    choice = select_solver(cfg, d, k)
+    if choice.kind == "scan":
+        out, rho_final = _dantzig.solve_dantzig_scan(a, b2, lam, cfg, rho0=rho, return_rho=True)
+    else:
+        rho_in = cfg.rho if rho is None else rho
+        out = kops.dantzig_fused(a, b2, lam, iters=cfg.max_iters, rho=rho_in,
+                                 alpha=cfg.alpha, block_k=choice.block_k)
+        rho_final = per_column(rho_in, b2)[..., 0, :]
+    out = out.to(b.dtype)
+    if squeeze:
+        return out[..., 0], rho_final[..., 0]
+    return out, rho_final
+
+
+def solve_dantzig_full(a, b, lam, cfg=None, *, rho=None, state=None) -> SolveResult:
+    """The full warm-carry solve: not in this slice."""
+    raise NotImplementedError(f"solve_dantzig_full {_dantzig.NEXT_SLICE}")

@@ -1,0 +1,50 @@
+"""Carries the reference's state across to the port.
+
+The JAX package hands its objects over as numpy arrays or plain dicts
+(``np.asarray`` of each field, ``cfg._asdict()``); these functions turn
+them into the port's tensors and types, so both packages compute from
+exactly the same inputs.  The system has no weights: its parameters
+are the problem, the spectral factor, the ADMM state and the solver
+configuration.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.dantzig import DantzigConfig
+from repro_torch.device import require_device
+from repro_torch.kernels.dantzig_fused import AdmmState
+from repro_torch.kernels.spectral import SpectralFactor
+from repro_torch.stats.synthetic import LDAProblem
+
+
+def tensor(a, device: str | torch.device = "cuda", dtype=torch.float32) -> torch.Tensor:
+    """A numpy array (or anything ``np.asarray`` takes) as a tensor, values unchanged."""
+    return torch.tensor(np.asarray(a), dtype=dtype, device=require_device(device))
+
+
+def problem_from_numpy(fields: Mapping, device: str | torch.device = "cuda") -> LDAProblem:
+    """The reference's ``LDAProblem`` fields (a mapping of arrays) as the port's problem."""
+    return LDAProblem(*(tensor(fields[name], device) for name in LDAProblem._fields))
+
+
+def factor_from_numpy(sigma, q, evals, device: str | torch.device = "cuda") -> SpectralFactor:
+    """A reference ``SpectralFactor`` (sigma, q, evals) as the port's."""
+    return SpectralFactor(tensor(sigma, device), tensor(q, device), tensor(evals, device))
+
+
+def state_from_numpy(z, w, u1, u2, device: str | torch.device = "cuda") -> AdmmState:
+    """A reference ``AdmmState`` (z, w, u1, u2) as the port's."""
+    return AdmmState(*(tensor(v, device) for v in (z, w, u1, u2)))
+
+
+def dantzig_config_from_dict(fields: Mapping) -> DantzigConfig:
+    """A reference ``DantzigConfig._asdict()`` as the port's config (same fields)."""
+    unknown = set(fields) - set(DantzigConfig._fields)
+    if unknown:
+        raise ValueError(f"fields the port's DantzigConfig does not have: {sorted(unknown)}")
+    return DantzigConfig(**fields)

@@ -1,0 +1,86 @@
+"""The kernel wrappers every caller goes through (twin of ``repro.kernels.ops``).
+
+A wrapper given CUDA tensors launches its hand-written kernel, or
+raises; given CPU tensors it runs the kernel's plain PyTorch version
+from :mod:`repro_torch.kernels.ref`.  This replaces the reference's
+per-call ``interpret`` switch: the tensor's device decides.  Nothing
+falls back from the card to the plain version.
+
+``LAUNCHES`` counts the kernel launches each wrapper made; it is the
+evidence that a run on the card went through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.dantzig_fused import dantzig_fused_cuda
+from repro_torch.kernels.gram import gram_cuda
+from repro_torch.kernels.soft_threshold import soft_threshold_triton
+from repro_torch.kernels.spectral import as_spectral_factor
+
+LAUNCHES = {"gram": 0, "dantzig_fused": 0, "soft_threshold": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"the port runs on CUDA or the CPU, not {t.device}")
+    return False
+
+
+def gram(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
+    """Mean-centered Gram (X - mu)^T (X - mu): x (..., n, d), mu (..., d) -> (..., d, d)."""
+    if not _on_card(x):
+        return ref.gram_ref(x, mu)
+    *batch, n, d = x.shape
+    out = gram_cuda(x.reshape(-1, n, d).contiguous(), mu.reshape(-1, d).contiguous())
+    LAUNCHES["gram"] += 1
+    return out.reshape(*batch, d, d)
+
+
+def soft_threshold(x: torch.Tensor, t) -> torch.Tensor:
+    """Shrink sign(x) * max(|x| - t, 0); ``t`` scalar or per column, (..., 1, c)."""
+    if not _on_card(x):
+        return ref.soft_threshold_ref(x, t)
+    out = soft_threshold_triton(x.contiguous(), t)
+    LAUNCHES["soft_threshold"] += 1
+    return out
+
+
+def dantzig_fused(a, b: torch.Tensor, lam, *, iters: int = 500, rho=1.0,
+                  alpha: float = 1.7, block_k: int | None = None) -> torch.Tensor:
+    """Whole fixed-iteration Dantzig/CLIME ADMM solve, cold start.
+
+    ``a`` is a (..., d, d) matrix, factorized here, or its
+    :class:`~repro_torch.kernels.spectral.SpectralFactor`, used as is.
+    ``b`` is (..., d, k) with the same leading (machine) dimensions;
+    ``lam`` and ``rho`` are scalars, (k,) per column or (..., k).
+    Returns the sparse ADMM copy w, shaped like ``b``.
+    """
+    factor = as_spectral_factor(a)
+    if not _on_card(b):
+        return ref.dantzig_fused_ref(factor.sigma, factor.q, factor.inv_eig, b, lam,
+                                     iters=iters, rho=rho, alpha=alpha)
+    *batch, d, k = b.shape
+    sigma = factor.sigma.expand(*batch, d, d)
+
+    def machines(t, *tail):
+        return t.expand(*batch, *tail).reshape(-1, *tail).contiguous()
+
+    cols = (*batch, k)
+    out = dantzig_fused_cuda(
+        machines(sigma, d, d), machines(factor.q, d, d), machines(factor.inv_eig, d),
+        machines(b.to(torch.float32), d, k),
+        ref.per_column(lam, b).reshape(cols).contiguous().reshape(-1, k),
+        ref.per_column(rho, b).reshape(cols).contiguous().reshape(-1, k),
+        iters=iters, alpha=alpha, block_k=block_k)
+    LAUNCHES["dantzig_fused"] += 1
+    return out.reshape(*batch, d, k)

@@ -1,0 +1,106 @@
+"""Synthetic two-class Gaussian generators (paper §5.1), twin of ``repro.stats.synthetic``.
+
+The paper's synthetic design: d = 200, Sigma*_jk = 0.8^{|j-k|} (AR(1)),
+mu1 = 0, mu2 = (1,...,1,0,...,0) with 10 ones; beta* = Theta* mu_d has
+11 nonzeros (AR(1) precision is tridiagonal, so the support widens by
+one).  r = n1/n = 0.5.
+
+The problem is built in numpy f64 and cast to f32 exactly as the
+reference does, so its tensors equal the reference's bit for bit.  The
+samplers draw from a ``torch.Generator``; their numbers differ from
+``jax.random``'s by design, so parity tests feed both packages the same
+numpy draws instead.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import require_device
+
+
+class LDAProblem(NamedTuple):
+    sigma: torch.Tensor  # (d, d) true covariance
+    theta: torch.Tensor  # (d, d) true precision
+    mu1: torch.Tensor
+    mu2: torch.Tensor
+    beta_star: torch.Tensor  # Theta* (mu1 - mu2)
+    chol: torch.Tensor  # cholesky(sigma) for sampling
+
+
+def ar1_covariance(d: int, rho: float = 0.8) -> np.ndarray:
+    idx = np.arange(d)
+    return rho ** np.abs(idx[:, None] - idx[None, :])
+
+
+def make_problem(
+    d: int = 200,
+    n_signal: int = 10,
+    rho: float = 0.8,
+    signal: float = 1.0,
+    *,
+    device: str | torch.device = "cuda",
+) -> LDAProblem:
+    dev = require_device(device)
+    sigma = ar1_covariance(d, rho)
+    theta = np.linalg.inv(sigma)
+    mu1 = np.zeros(d)
+    mu2 = np.zeros(d)
+    mu2[:n_signal] = signal
+    beta_star = theta @ (mu1 - mu2)
+    # clean up numerically-zero entries so support metrics are exact
+    beta_star[np.abs(beta_star) < 1e-10] = 0.0
+    chol = np.linalg.cholesky(sigma)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    return LDAProblem(f32(sigma), f32(theta), f32(mu1), f32(mu2), f32(beta_star), f32(chol))
+
+
+def _on(problem: LDAProblem, device) -> torch.device:
+    dev = require_device(device)
+    if problem.sigma.device.type != dev.type:
+        raise ValueError(
+            f"the problem lives on {problem.sigma.device}, the draw was asked for {dev}")
+    return problem.sigma.device
+
+
+def sample_two_class(
+    gen: torch.Generator, problem: LDAProblem, n1: int, n2: int, *,
+    device: str | torch.device = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Draw (X: (n1, d), Y: (n2, d)) from the two Gaussians."""
+    dev = _on(problem, device)
+    d = problem.mu1.shape[0]
+    x = problem.mu1 + torch.randn(n1, d, generator=gen, device=dev) @ problem.chol.T
+    y = problem.mu2 + torch.randn(n2, d, generator=gen, device=dev) @ problem.chol.T
+    return x, y
+
+
+def sample_machines(
+    gen: torch.Generator, problem: LDAProblem, m: int, n1: int, n2: int, *,
+    device: str | torch.device = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Draw stacked per-machine shards xs: (m, n1, d), ys: (m, n2, d)."""
+    dev = _on(problem, device)
+    d = problem.mu1.shape[0]
+    xs = problem.mu1 + torch.randn(m, n1, d, generator=gen, device=dev) @ problem.chol.T
+    ys = problem.mu2 + torch.randn(m, n2, d, generator=gen, device=dev) @ problem.chol.T
+    return xs, ys
+
+
+def sample_labeled(
+    gen: torch.Generator, problem: LDAProblem, n: int, *,
+    device: str | torch.device = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Equal-prior labeled test draw: returns (Z: (n, d), labels in {0, 1})."""
+    dev = _on(problem, device)
+    labels = (torch.rand(n, generator=gen, device=dev) < 0.5).to(torch.int32)
+    d = problem.mu1.shape[0]
+    noise = torch.randn(n, d, generator=gen, device=dev) @ problem.chol.T
+    mus = torch.where(labels[:, None] == 0, problem.mu1[None, :], problem.mu2[None, :])
+    return mus + noise, labels

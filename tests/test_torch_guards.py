@@ -1,0 +1,90 @@
+"""Structural guards of the port: no JAX, no reference imports, no silent CPU default."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import quickstart
+from repro_torch.stats import synthetic
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+
+
+def test_every_port_module_imports_without_jax():
+    body = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", body], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert int(res.stdout.strip()) >= 20
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    # on a machine without a card, an entry point called without
+    # device= raises instead of running on the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    problem = synthetic.make_problem(d=8, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthetic.sample_machines(torch.Generator(), problem, 2, 4, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthetic.make_problem(d=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.main()
+
+
+def test_samplers_draw_on_the_requested_device():
+    problem = synthetic.make_problem(d=8, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    xs, ys = synthetic.sample_machines(gen, problem, 3, 5, 6, device="cpu")
+    assert xs.shape == (3, 5, 8) and ys.shape == (3, 6, 8)
+    z, labels = synthetic.sample_labeled(gen, problem, 10, device="cpu")
+    assert z.shape == (10, 8) and set(labels.tolist()) <= {0, 1}
+    x, y = synthetic.sample_two_class(gen, problem, 4, 2, device="cpu")
+    assert x.shape == (4, 8) and y.shape == (2, 8)
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["in-repo", "alone"])
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
+    # with no card visible the smoke must exit non-zero and print no
+    # result, and copied alone into an empty directory it must fail too
+    script = REPO / "chip_smoke.py"
+    cwd = REPO
+    if alone:
+        cwd = tmp_path
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
