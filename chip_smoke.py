@@ -5,21 +5,32 @@
 
 Phases, each of which exits non-zero on failure:
 
-1. build: compiles the CUDA C++ kernels (K1 gram, K2 fused ADMM) from
-   ``repro_torch/kernels/csrc`` with one nvcc per source, all at once,
-   and JIT-compiles the Triton kernel (K4 shrink);
+1. build: compiles the CUDA C++ kernels (K1 gram; K2 and K3, the fused
+   ADMM without and with state) from ``repro_torch/kernels/csrc`` with
+   one nvcc per source, all at once, and JIT-compiles the Triton kernel
+   (K4 shrink);
 2. kernels: each kernel against its plain PyTorch version on the card,
    at the main path's shapes and at ragged ones, plus K2's bit-identity
-   across column blockings;
+   across column blockings, and K3 at the lambda path's shapes (the
+   CLIME block and the k = 8 direction fold): bit-identical to K2 and
+   exactly resumable at ``tol=None``, and with ``tol`` set the same
+   per-block iteration counts as its plain version;
 3. main path: Algorithm 1 at the paper's §5.1 size (d = 200, AR(0.8),
    10 signal coordinates, N = 10,000 over m = 20 machines, 500 ADMM
    iterations) through the entry points a user calls, twice --
    (a) ``DantzigConfig(fused=True)``: K1 + K2, and
    (b) ``DantzigConfig(use_kernel=True)``: K1 + K4 under the adaptive-rho
    scan -- each held against the same estimators on the card's plain path,
-   with the kernels' launch counts read around each run;
+   with the kernels' launch counts read around each run; then
+   (c) the lambda path at the same size: an 8-point grid around lam,
+   swept cold and then warm from the cold sweep's states under a fused,
+   tol-gated config (K1 + K3, two K3 launches per sweep), each machine's
+   lambda chosen on a separate validation draw and by KKT, and the
+   aggregate's statistics at every grid point held against the same
+   sweep run with the plain versions;
 4. times: each kernel, its plain version and the one PyTorch call that
-   computes the same function (where there is one), with CUDA events.
+   computes the same function (where there is one), with CUDA events,
+   and the cold and warm sweeps.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
@@ -27,6 +38,7 @@ and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -49,6 +61,16 @@ N_PER = SYNTHETIC.N // M
 ITERS, N_TEST, SEED = 500, 4000, 0
 DEVICE = "cuda:0"
 CHECK_ITERS = 200  # K2 vs its plain version: f32 drift grows with the iteration count
+# The lambda path: 8 grid points lam * 2^((l - 4) / 4), l = 0..7, from lam / 2 to
+# 1.68 lam with lam itself at l = 4, swept under a fused, tol-gated config.  At
+# this size fixed-rho ADMM leaves a max scaled residual of ~2e-2 after 500
+# iterations and ~9e-3 after 1000, so a 1e-2 gate never fires in the cold
+# sweep (which then equals the fixed 500-iteration solve) and fires during the
+# warm re-sweep; a 1e-4 gate would fire in neither.
+L_GRID = 8
+PATH_TOL, CHECK_EVERY = 1e-2, 10
+LOOSE_TOL = 0.1  # K3 phase only: a gate the cold CLIME blocks reach inside 200 iterations
+N_VAL = 2000
 
 
 FAILURES: list[str] = []
@@ -89,10 +111,55 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def state_kernel_work(counts: torch.Tensor, k: int, bk: int, max_iters: int) -> tuple[int, int]:
+    """(FLOP, bytes) K3 needs for the executed per-(machine, block) ``counts``.
+
+    Every iteration costs four (d, d) x (d, cols) products and ~20
+    elementwise operations per entry; every residual check (after each
+    chunk but the one that reaches ``max_iters``) one more beta solve and
+    A dz, five products.  Bytes: A, Q, inv, b, lam, rho and the state read
+    once, the state and the counts written once.
+    """
+    m, nb = counts.shape
+    flops = 0
+    for blk, row in enumerate(counts.T.tolist()):
+        cols = min(bk, k - blk * bk)
+        for n in row:
+            checks = -(-n // CHECK_EVERY) - (1 if n >= max_iters else 0)
+            flops += n * (8 * D * D + 20 * D) * cols + checks * 10 * D * D * cols
+    nbytes = 4 * (2 * m * D * D + m * D + 2 * m * k + 9 * m * D * k + m * nb)
+    return flops, nbytes
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """The least milliseconds the card could take, and what bounds it."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+@contextlib.contextmanager
+def plain_state_kernel():
+    """Within the block the kernel wrappers run K3's plain version on the card.
+
+    Only this script does that, to hold the lambda path against the same
+    path on the plain versions; the port itself never does.
+    """
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dantzig_fused import FusedSolveResult, resolve_block_k
+
+    def plain(a, q, inv_eig, b, lam, rho, state=None, *, iters, alpha, tol=None,
+              check_every=10, block_k=None):
+        bk = resolve_block_k(b.shape[-2], b.shape[-1], block_k, state_io=True)
+        return FusedSolveResult(*ref.dantzig_fused_state_ref(
+            a, q, inv_eig, b, lam, iters=iters, rho=rho, alpha=alpha, block_k=bk, tol=tol,
+            check_every=check_every, state=state))
+
+    saved = ops.dantzig_fused_state_cuda
+    ops.dantzig_fused_state_cuda = plain
+    try:
+        yield
+    finally:
+        ops.dantzig_fused_state_cuda = saved
 
 
 def main() -> None:
@@ -101,6 +168,8 @@ def main() -> None:
 
     from repro_torch.core import pipeline
     from repro_torch.core.dantzig import DantzigConfig
+    from repro_torch.core.path import select_by_kkt, solve_dantzig_path, take_lambda
+    from repro_torch.core.slda import debiased_local_estimator_path, tune_lambda_validation
     from repro_torch.core.distributed import (
         simulated_distributed_slda,
         simulated_naive_averaged_slda,
@@ -109,7 +178,12 @@ def main() -> None:
     from repro_torch.core.slda import centralized_slda, hard_threshold
     from repro_torch.core.solver_dispatch import solve_dantzig
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.dantzig_fused import dantzig_fused_cuda, pick_block_k
+    from repro_torch.kernels.dantzig_fused import (
+        dantzig_fused_cuda,
+        dantzig_fused_state_cuda,
+        pick_block_k,
+        resolve_block_k,
+    )
     from repro_torch.kernels.gram import gram_cuda
     from repro_torch.kernels.soft_threshold import soft_threshold_triton
     from repro_torch.kernels.spectral import spectral_factor
@@ -185,6 +259,7 @@ def main() -> None:
         return ref.dantzig_fused_ref(stats.sigma, factor.q, factor.inv_eig, b, lam,
                                      iters=CHECK_ITERS, rho=1.0, alpha=1.7)
 
+    pins = {}
     for label, b in (("CLIME k=200", eye), ("direction k=1", stats.mu_d.unsqueeze(-1))):
         got, want = k2(b), k2_plain(b)
         k = b.shape[-1]
@@ -200,8 +275,8 @@ def main() -> None:
         # the repo's 1e-5 pin relative to the largest entry, or, where
         # the summation order alone moves the plain version further, no
         # more than twice that spread
-        check(err <= max(1e-5 * max(1.0, scale), 2 * spread),
-              f"K2 {label}: err {err} > max(1e-5 * {scale}, 2 * {spread})")
+        pins[label] = max(1e-5 * max(1.0, scale), 2 * spread)
+        check(err <= pins[label], f"K2 {label}: err {err} > max(1e-5 * {scale}, 2 * {spread})")
         errs["dantzig_fused"] = max(errs.get("dantzig_fused", 0.0), err)
     full = k2(eye)
     bk = pick_block_k(D, D)
@@ -212,6 +287,81 @@ def main() -> None:
     }
     print(f"[kernels] K2 default block_k={bk} bit-identical to: {json.dumps(same)}")
     check(all(same.values()), f"K2 output depends on the blocking: {same}")
+
+    # K3 at the lambda path's shapes: the CLIME block (k = 200) and the
+    # direction solve folded over the 8-point grid (k = 8, lam per column)
+    lams = torch.tensor([lam * 2.0 ** ((l - L_GRID // 2) / (L_GRID // 2)) for l in range(L_GRID)],
+                        dtype=torch.float32, device=dev)
+    fold_b = stats.mu_d.unsqueeze(-1).expand(M, D, L_GRID).contiguous()
+    shapes = {"CLIME k=200": (eye, torch.full((M, D), lam, device=dev)),
+              "direction fold k=8": (fold_b, lams.expand(M, L_GRID).contiguous())}
+    # the fold's pin as K2's: the plain version's own spread when the same
+    # columns are solved inside a wider product
+    fold_plain = ref.dantzig_fused_ref(stats.sigma, factor.q, factor.inv_eig, fold_b, lams,
+                                       iters=CHECK_ITERS, rho=1.0, alpha=1.7)
+    fold_wide = ref.dantzig_fused_ref(
+        stats.sigma, factor.q, factor.inv_eig, torch.cat([fold_b, eye[..., :8]], dim=-1),
+        torch.cat([lams, torch.full((8,), lam, device=dev)]), iters=CHECK_ITERS, rho=1.0,
+        alpha=1.7)[..., :L_GRID]
+    pins["direction fold k=8"] = max(1e-5 * max(1.0, float(fold_plain.abs().max())),
+                                     2 * float((fold_wide - fold_plain).abs().max()))
+
+    def k3(b, lam_cols, state=None, iters=CHECK_ITERS, tol=None):
+        return dantzig_fused_state_cuda(stats.sigma, q, factor.inv_eig, b, lam_cols,
+                                        rho_cols[:, :b.shape[-1]].contiguous(), state,
+                                        iters=iters, alpha=1.7, tol=tol, check_every=CHECK_EVERY)
+
+    def k3_plain(b, lam_cols, state=None, iters=CHECK_ITERS, tol=None, trace=None):
+        bk = resolve_block_k(D, b.shape[-1], None, state_io=True)
+        return ref.dantzig_fused_state_ref(stats.sigma, factor.q, factor.inv_eig, b, lam_cols,
+                                           iters=iters, rho=1.0, alpha=1.7, block_k=bk,
+                                           tol=tol, check_every=CHECK_EVERY, state=state,
+                                           trace=trace)
+
+    for label, (b, lam_cols) in shapes.items():
+        k = b.shape[-1]
+        fixed = k3(b, lam_cols)
+        k2_out = dantzig_fused_cuda(stats.sigma, q, factor.inv_eig, b, lam_cols,
+                                    rho_cols[:, :k].contiguous(), iters=CHECK_ITERS, alpha=1.7)
+        split = 2 * CHECK_ITERS // 5
+        first = k3(b, lam_cols, iters=split)
+        resumed = k3(b, lam_cols, state=first.state, iters=CHECK_ITERS - split)
+        same_k2 = torch.equal(fixed.beta, k2_out)
+        resume_exact = all(torch.equal(x, y) for x, y in zip(resumed.state, fixed.state))
+        err = float((fixed.beta - k3_plain(b, lam_cols)[0]).abs().max())
+        print(f"[kernels] K3 {label}, tol=None, {CHECK_ITERS} iters: bit-identical to K2 "
+              f"{same_k2}; {split} + {CHECK_ITERS - split} resumed bit-identical to {CHECK_ITERS} "
+              f"{resume_exact}; max abs err vs plain {err:.3e} (pin {pins[label]:.3e})")
+        check(same_k2, f"K3 {label}: differs from K2 at tol=None from the zero state")
+        check(resume_exact, f"K3 {label}: a resumed run differs from one straight run")
+        check(fixed.iters.eq(CHECK_ITERS).all().item(), f"K3 {label}: tol=None counts differ")
+        check(err <= pins[label], f"K3 {label} tol=None: err {err} > {pins[label]}")
+        errs["dantzig_fused_state"] = max(errs.get("dantzig_fused_state", 0.0), err)
+        warm_state = k3(b, lam_cols, iters=ITERS).state
+        for start, state, tol in (("cold", None, PATH_TOL), (f"warm from {ITERS}", warm_state,
+                                                              PATH_TOL),
+                                  ("cold", None, LOOSE_TOL)):
+            got = k3(b, lam_cols, state=state, tol=tol)
+            trace = []
+            want_w, _, want_iters = k3_plain(b, lam_cols, state=state, tol=tol, trace=trace)
+            diff = got.iters - want_iters
+            for mach, blk in diff.nonzero().tolist():
+                n_k, n_p = int(got.iters[mach, blk]), int(want_iters[mach, blk])
+                res = float(trace[min(n_k, n_p) // CHECK_EVERY - 1][mach, blk])
+                print(f"  K3 {label} {start}: machine {mach} block {blk}: kernel {n_k} "
+                      f"iterations, plain {n_p}; plain residual at iteration {min(n_k, n_p)}: "
+                      f"{res:.6e} (tol {tol})")
+            check(int(diff.abs().max()) <= CHECK_EVERY,
+                  f"K3 {label} {start} tol {tol}: block counts differ by more than one chunk")
+            bk = resolve_block_k(D, k, None, state_io=True)
+            agree = (diff == 0).repeat_interleave(bk, dim=-1)[:, :k].unsqueeze(-2)
+            err = float(((got.beta - want_w).abs() * agree).max())
+            print(f"[kernels] K3 {label}, tol={tol}, {start} start: block counts "
+                  f"{sorted(set(got.iters.flatten().tolist()))} (plain "
+                  f"{sorted(set(want_iters.flatten().tolist()))}), {int((diff != 0).sum())} of "
+                  f"{diff.numel()} differ; max abs err where counts agree {err:.3e}")
+            check(err <= pins[label], f"K3 {label} {start} tol {tol}: err {err} > {pins[label]}")
+            errs["dantzig_fused_state"] = max(errs["dantzig_fused_state"], err)
 
     # ---- 3. the main path ---------------------------------------------------
     def estimators(cfg, use_kernel, times):
@@ -279,6 +429,89 @@ def main() -> None:
         else:
             check(run_launches["soft_threshold"] > 0, "run (b): K4 never launched")
 
+    # ---- 3 (c). the lambda path -----------------------------------------------
+    path_cfg = DantzigConfig(max_iters=ITERS, fused=True, adapt_rho=False, tol=PATH_TOL,
+                             check_every=CHECK_EVERY)
+    z_val, labels_val = synthetic.sample_labeled(gen, problem, N_VAL, device=dev)
+
+    def sweep(**warm):
+        return debiased_local_estimator_path(xs, ys, lams, lam, path_cfg, **warm)
+
+    sweeps, sweep_s, sweep_launches = {}, {}, {}
+    for name, warm in (("cold", {}), ("warm", None)):
+        if warm is None:
+            warm = dict(rho_beta=sweeps["cold"].rho_beta, state_beta=sweeps["cold"].state_beta)
+        ops.reset_launches()
+        sweeps[name], sweep_s[name] = sync_time(lambda: sweep(**warm))
+        sweep_launches[name] = dict(ops.LAUNCHES)
+        for kernel, n in sweep_launches[name].items():
+            launches[kernel] += n
+        check(sweep_launches[name]["dantzig_fused_state"] == 2,
+              f"lambda path {name}: K3 launched {sweep_launches[name]['dantzig_fused_state']} "
+              "times, not 2")
+        check(sweep_launches[name]["dantzig_fused"] == 0, f"lambda path {name}: K2 launched")
+        check(sweep_launches[name]["gram"] > 0, f"lambda path {name}: K1 never launched")
+    cold, warm = sweeps["cold"], sweeps["warm"]
+    iters = {name: int(r.iters.sum()) for name, r in sweeps.items()}
+    print(f"[lambda path] {path_cfg}\n  grid lam * 2^((l-4)/4): {lams.tolist()}\n"
+          f"  launches: cold {sweep_launches['cold']}, warm {sweep_launches['warm']}\n"
+          f"  direction-fold iterations summed over machines and grid points: cold "
+          f"{iters['cold']}, warm {iters['warm']}; per machine cold "
+          f"{cold.iters[..., 0, 0].tolist()}, warm {warm.iters[..., 0, 0].tolist()}\n"
+          f"  wall seconds: cold {sweep_s['cold']:.4f}, warm {sweep_s['warm']:.4f}")
+    check(iters["warm"] < iters["cold"],
+          f"lambda path: warm sweep ran {iters['warm']} iterations, cold {iters['cold']}")
+    for name, r in sweeps.items():
+        check(r.beta_tilde.shape == (M, L_GRID, D, 1) and bool(torch.isfinite(r.beta_tilde).all()),
+              f"lambda path {name}: beta_tilde shape {tuple(r.beta_tilde.shape)} or non-finite")
+
+    def grid_rows(result, idx):
+        """The aggregate (mean over machines, HT at t) at each grid point and at the picks."""
+        betas = {f"l={l} lam={float(lams[l]):.4f}": hard_threshold(
+            result.beta_tilde[:, l, :, 0].mean(0), t) for l in range(L_GRID)}
+        for rule, i in idx.items():
+            betas[f"tuned ({rule})"] = hard_threshold(
+                take_lambda(result.beta_tilde, i)[..., 0].mean(0), t)
+        return metrics(betas, problem.beta_star, z, labels, mu1_all, mu2_all), betas
+
+    idx = {"validation": tune_lambda_validation(cold, z_val, labels_val)[0],
+           "kkt": select_by_kkt(cold)}
+    rows, path_betas = grid_rows(cold, idx)
+    print(f"  chosen grid index per machine: validation {idx['validation'].tolist()}, "
+          f"KKT {idx['kkt'].tolist()}")
+    print(format_table(rows))
+    with plain_state_kernel():
+        plain_cold = sweep()
+    plain_rows, _ = grid_rows(plain_cold, idx)
+    print(f"[lambda path, plain versions on the card] direction-fold iterations "
+          f"{int(plain_cold.iters.sum())} (kernel {iters['cold']})")
+    for name in rows:
+        gap = abs(rows[name][1] - plain_rows[name][1])
+        print(f"  {name}: F1 {rows[name][0]:.4f} vs {plain_rows[name][0]:.4f}, l2 gap {gap:.3e}")
+        check(rows[name][0] == plain_rows[name][0], f"lambda path {name}: F1 differs from plain")
+        check(gap <= 1e-3, f"lambda path {name}: l2 gap {gap} > 1e-3")
+    for name, beta in path_betas.items():
+        check(beta.shape == (D,) and bool(torch.isfinite(beta).all()),
+              f"lambda path {name}: shape {tuple(beta.shape)} or non-finite values")
+    one_shot = simulated_distributed_slda(xs, ys, lam, lam, t, path_cfg)
+    at_lam = f"l={L_GRID // 2} lam={float(lams[L_GRID // 2]):.4f}"
+    one_row = metrics({"one-shot": one_shot}, problem.beta_star, z, labels, mu1_all,
+                      mu2_all)["one-shot"]
+    print(f"  grid point lam = {lam:.4f}: F1 {rows[at_lam][0]:.4f}; one-shot distributed "
+          f"estimator under the same config: F1 {one_row[0]:.4f}, l2 {one_row[1]:.4f}")
+    check(float(lams[L_GRID // 2]) == float(torch.tensor(lam)), "the grid does not hold lam")
+    check(rows[at_lam][0] == one_row[0], "lambda path: the grid point at lam and the one-shot "
+          "estimator differ in F1")
+    # at tol=None the folded sweep is the single solves, bit for bit
+    fold_cfg = path_cfg._replace(tol=None, max_iters=CHECK_ITERS)
+    fold = solve_dantzig_path(factor, stats.mu_d, lams, fold_cfg)
+    fold_same = [torch.equal(fold.beta[:, l], solve_dantzig(factor, stats.mu_d, float(lams[l]),
+                                                             fold_cfg))
+                 for l in range(L_GRID)]
+    print(f"  tol=None fold, {CHECK_ITERS} iters: grid point l bit-identical to a single K2 "
+          f"solve at lam_l: {fold_same}")
+    check(all(fold_same), "lambda path: the tol=None fold differs from single K2 solves")
+
     # ---- 4. times -------------------------------------------------------------
     name_card = torch.cuda.get_device_name(0)
     kernels = []
@@ -314,6 +547,44 @@ def main() -> None:
         ITERS * M * (8 * D * D * D + 20 * D * D),
         4 * (2 * M * D * D + M * D + 2 * M * D * D + 2 * M * D), None)
 
+    # K3 on the cold lambda path's CLIME block; its bound counts the
+    # iterations and residual checks this run's data needed
+    def k3_clime():
+        return dantzig_fused_state_cuda(stats.sigma, q, factor.inv_eig, eye, lam_cols,
+                                        rho_cols, None, iters=ITERS, alpha=1.7, tol=PATH_TOL,
+                                        check_every=CHECK_EVERY)
+
+    def k3_clime_plain():
+        return ref.dantzig_fused_state_ref(stats.sigma, factor.q, factor.inv_eig, eye, lam,
+                                           iters=ITERS, rho=1.0, alpha=1.7,
+                                           block_k=resolve_block_k(D, D, None, state_io=True),
+                                           tol=PATH_TOL, check_every=CHECK_EVERY)
+
+    k3_counts = k3_clime().iters
+    k3_ms = cuda_ms(k3_clime, 3)
+    k3_plain_ms = cuda_ms(k3_clime_plain, 1)
+    fold_lam = lams.expand(M, L_GRID).contiguous()
+
+    def k3_fold():
+        return dantzig_fused_state_cuda(stats.sigma, q, factor.inv_eig, fold_b, fold_lam,
+                                        rho_cols[:, :L_GRID].contiguous(), None, iters=ITERS,
+                                        alpha=1.7, tol=PATH_TOL, check_every=CHECK_EVERY)
+
+    fold_counts = k3_fold().iters
+    fold_ms = cuda_ms(k3_fold, 3)
+    flops, nbytes = state_kernel_work(k3_counts, D, resolve_block_k(D, D, None, state_io=True),
+                                      ITERS)
+    row("dantzig_fused_state", "cuda", "repro_torch/kernels/csrc/dantzig_fused.cu",
+        "src/repro/kernels/dantzig_fused.py:222", k3_ms, k3_plain_ms, flops, nbytes, None)
+    fold_bound, _ = bound(*state_kernel_work(fold_counts, L_GRID, L_GRID, ITERS))
+    sweep_ms = {name: cuda_ms(lambda: sweep(**warm_kw), 3) for name, warm_kw in (
+        ("cold", {}), ("warm", dict(rho_beta=cold.rho_beta, state_beta=cold.state_beta)))}
+    print(f"[times] K3 CLIME (m={M}, d={D}, k={D}, tol={PATH_TOL}, max {ITERS} iters): "
+          f"{k3_ms:.3f} ms for block counts {sorted(set(k3_counts.flatten().tolist()))} "
+          f"(plain {k3_plain_ms:.3f} ms, bound {kernels[-1]['bound_ms']:.3f} ms); K3 direction "
+          f"fold (k={L_GRID}): {fold_ms:.3f} ms for counts "
+          f"{sorted(set(fold_counts.flatten().tolist()))} (bound {fold_bound:.4f} ms)")
+    print(f"[times] lambda-path sweeps by CUDA events, ms: {json.dumps(sweep_ms)}")
     numel = x_shrink.numel()
     st_ms = cuda_ms(lambda: soft_threshold_triton(x_shrink, t_cols), 200)
     st_scalar_ms = cuda_ms(lambda: soft_threshold_triton(x_shrink, 0.05), 200)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.dantzig import DantzigConfig
-from repro_torch.core.solver_dispatch import solve_dantzig
+from repro_torch.core.solver_dispatch import SolveResult, solve_dantzig, solve_dantzig_full
 from repro_torch.kernels.spectral import sigma_of
 
 
@@ -26,8 +26,19 @@ def _clime_rhs(sigma, cols: torch.Tensor) -> torch.Tensor:
 
 def solve_clime_columns(sigma, cols: torch.Tensor, lam, cfg: DantzigConfig = DantzigConfig(),
                         rho=None, state=None) -> torch.Tensor:
-    """Solve CLIME for the columns indexed by ``cols``: (..., d, len(cols))."""
+    """Solve CLIME for the columns indexed by ``cols``: (..., d, len(cols)).
+
+    ``state`` optionally resumes the block from a previous solve's ADMM
+    state (leaves (..., d, len(cols))).
+    """
     return solve_dantzig(sigma, _clime_rhs(sigma, cols), lam, cfg, rho=rho, state=state)
+
+
+def solve_clime_columns_full(sigma, cols: torch.Tensor, lam,
+                             cfg: DantzigConfig = DantzigConfig(), rho=None,
+                             state=None) -> SolveResult:
+    """:func:`solve_clime_columns` returning the full warm-carry :class:`SolveResult`."""
+    return solve_dantzig_full(sigma, _clime_rhs(sigma, cols), lam, cfg, rho=rho, state=state)
 
 
 def solve_clime(sigma, lam, cfg: DantzigConfig = DantzigConfig(), rho=None, state=None,

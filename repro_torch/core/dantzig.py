@@ -12,9 +12,11 @@ eigendecomposition ``A = Q L Q^T``: two matmuls.  Leading dimensions of
 ``A`` are machines; every machine and column is solved in one batch.
 
 This module is the scan path of the reference (``solve_dantzig_scan``):
-over-relaxation and residual-balancing adaptive rho, in PyTorch eager.
-The residual-gated early exit (``cfg.tol``) and warm ``AdmmState``
-resumes come with the slice that ports the state kernel (K3).
+over-relaxation, residual-balancing adaptive rho, the residual-gated
+early exit (``cfg.tol``) and warm ``AdmmState`` resumes, in PyTorch
+eager.  With machines on the leading axes the gate is per machine, as
+under the reference's ``vmap`` of its ``while_loop``: a machine that
+has converged freezes while the others run on.
 """
 
 from __future__ import annotations
@@ -27,9 +29,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.dantzig_fused import AdmmState
 from repro_torch.kernels.ref import per_column
 from repro_torch.kernels.spectral import SpectralFactor, spectral_factor
-
-NEXT_SLICE = ("comes with the port's next slice (the warm-state, tol-gated "
-              "fused kernel K3 and the solver paths that use it)")
 
 
 class DantzigConfig(NamedTuple):
@@ -47,7 +46,8 @@ class DantzigConfig(NamedTuple):
     adapt_every: int = 10
     # use the soft-threshold kernel (K4) for the shrink step on the card
     use_kernel: bool = False
-    # run the WHOLE solve in the fused kernel (K2; fixed rho, no adaptation)
+    # run the WHOLE solve in the fused kernels (K2, or K3 with `tol` or a
+    # warm state; fixed rho, no adaptation)
     fused: bool = False
     # explicit columns-per-block override for the fused kernel
     # (None = size the blocks with the Hopper blocking model)
@@ -55,7 +55,9 @@ class DantzigConfig(NamedTuple):
     # shared-memory budget in bytes for the fused kernel's blocking model
     # (None = the card's 227 KB; larger values are capped at it)
     vmem_budget: int | None = None
-    # residual-gated early exit: not in this slice (see NEXT_SLICE)
+    # residual-gated early exit: stop once the max scaled primal/dual
+    # residual is at most `tol`, checking every `check_every` iterations,
+    # capped at `max_iters` (None: exactly `max_iters` iterations)
     tol: float | None = None
     check_every: int = 10
 
@@ -90,17 +92,23 @@ def solve_dantzig_scan(
 
     ``a``: (..., d, d) matrix or its :class:`SpectralFactor`; ``b``:
     (..., d) or (..., d, k) with the same leading dimensions; ``lam``
-    and ``rho0`` scalars, (k,) or (..., k).  With ``return_rho`` the
-    final adapted per-problem rho, (..., k), rides along.
+    and ``rho0`` scalars, (k,) or (..., k).  ``state0`` resumes from a
+    previous solve's :class:`AdmmState` (leaves shaped like ``b``; the
+    residual-balancing index restarts at 0).  With ``cfg.tol`` the loop
+    runs ``cfg.check_every``-iteration chunks until each machine's max
+    scaled residual is at most ``tol``, capped at exactly
+    ``cfg.max_iters``.  Returns ``beta``, then the final per-problem rho
+    (..., k) with ``return_rho``, then ``(state, iters)`` with
+    ``return_info``: iters is each machine's executed count, shaped like
+    the leading dimensions.
     """
-    if cfg.tol is not None or state0 is not None or return_info:
-        raise NotImplementedError(f"cfg.tol, state0 and return_info {NEXT_SLICE}")
     factor = a if isinstance(a, SpectralFactor) else spectral_factor(a)
     a = factor.sigma
+    batch = a.shape[:-2]
     squeeze = b.ndim == a.ndim - 1
     if squeeze:
         b = b.unsqueeze(-1)
-    b = b.expand(*a.shape[:-2], *b.shape[-2:])
+    b = b.expand(*batch, *b.shape[-2:])
     q = factor.q
     qt = q.mT
     inv_eig = factor.inv_eig.unsqueeze(-1)
@@ -111,10 +119,16 @@ def solve_dantzig_scan(
 
     zeros = torch.zeros_like(b)
     rho = (per_column(cfg.rho, b) if rho0 is None else per_column(rho0, b)).clone()
-    z = w = u1 = u2 = zeros
+    if state0 is None:
+        state = (zeros, zeros, zeros, zeros, rho)
+    else:
+        leaves = [leaf.to(b.dtype) for leaf in state0]
+        if squeeze:
+            leaves = [leaf.unsqueeze(-1) for leaf in leaves]
+        state = (*(leaf.expand_as(b) for leaf in leaves), rho)
     alpha = cfg.alpha
-    for i in range(cfg.max_iters):
-        z0, w0 = z, w
+
+    def iterate(z0, w0, u1, u2, rho, i):
         beta = solve_m(a @ (z0 + b - u1) + (w0 - u2))
         ab = a @ beta
         # over-relaxation mixes in the previous constraint copies
@@ -125,7 +139,7 @@ def solve_dantzig_scan(
         u1 = u1 + ab_r - z - b
         u2 = u2 + beta_r - w
         if not cfg.adapt_rho or i % cfg.adapt_every:
-            continue
+            return z, w, u1, u2, rho
         # residual balancing, per problem in the batch.  Skipping the
         # other iterations is exact: the reference scales by 1.0 there.
         r_pri = torch.sqrt(torch.sum((ab - z - b) ** 2 + (beta - w) ** 2, dim=-2, keepdim=True))
@@ -133,16 +147,46 @@ def solve_dantzig_scan(
             torch.sum((a @ (z - z0)) ** 2 + (w - w0) ** 2, dim=-2, keepdim=True))
         scale = torch.where(r_pri > cfg.rho_mu * s_dual, cfg.rho_tau,
                             torch.where(s_dual > cfg.rho_mu * r_pri, 1.0 / cfg.rho_tau, 1.0))
-        rho = rho * scale
         # scaled duals u = y/rho must rescale with rho
-        u1 = u1 / scale
-        u2 = u2 / scale
+        return z, w, u1 / scale, u2 / scale, rho * scale
 
-    beta = w[..., 0] if squeeze else w
-    if not return_rho:
-        return beta
-    rho = rho[..., 0, :]
-    return beta, (rho[..., 0] if squeeze else rho)
+    if cfg.tol is None:
+        for i in range(cfg.max_iters):
+            state = iterate(*state, i)
+        iters = torch.full(batch, cfg.max_iters, dtype=torch.int32, device=b.device)
+    else:
+        # chunks of check_every iterations, the last clamped so the cap
+        # is exactly max_iters; the balancing index is the global it + j
+        active = torch.ones((*batch, 1, 1), dtype=torch.bool, device=b.device)
+        iters = torch.zeros(batch, dtype=torch.int32, device=b.device)
+        it = 0
+        while it < cfg.max_iters and bool(active.any()):
+            n = min(cfg.check_every, cfg.max_iters - it)
+            for j in range(n):
+                new = iterate(*state, it + j)
+                dz, dw = new[0] - state[0], new[1] - state[1]
+                state = tuple(torch.where(active, v, old) for v, old in zip(new, state))
+            it += n
+            iters = torch.where(active[..., 0, 0], iters + n, iters)
+            z, w, u1, u2, rho = state
+            beta = solve_m(a @ (z + b - u1) + (w - u2))
+            ab = a @ beta
+            r_pri = torch.maximum((ab - z - b).abs().amax((-2, -1)),
+                                  (beta - w).abs().amax((-2, -1)))
+            s_dual = (rho * (a @ dz + dw).abs().amax(-2, keepdim=True)).amax((-2, -1))
+            active = active & (torch.maximum(r_pri, s_dual) > cfg.tol)[..., None, None]
+
+    z, w, u1, u2, rho = state
+    out = (w[..., 0] if squeeze else w,)
+    if return_rho:
+        rho = rho[..., 0, :]
+        out += (rho[..., 0] if squeeze else rho,)
+    if return_info:
+        leaves = (z, w, u1, u2)
+        if squeeze:
+            leaves = tuple(v[..., 0] for v in leaves)
+        out += (AdmmState(*leaves), iters)
+    return out if len(out) > 1 else out[0]
 
 
 def kkt_violation(a: torch.Tensor, b: torch.Tensor, beta: torch.Tensor, lam) -> torch.Tensor:

@@ -6,8 +6,8 @@ correction -- written once.  Machines are the leading axis of every
 tensor: ``xs`` (m, n1, d) gives (m, d, d) statistics, one batched
 ``eigh`` and one launch per solve for all m machines.
 
-The mesh faces (``model_axis``) and the warm-carry ``full=True`` solves
-come with later slices of the port and raise here.
+The mesh faces (``model_axis``) come with a later slice of the port
+and raise here.
 """
 
 from __future__ import annotations
@@ -16,11 +16,16 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.core.clime import solve_clime_columns, symmetrize_min
-from repro_torch.core.dantzig import NEXT_SLICE, DantzigConfig
-from repro_torch.core.solver_dispatch import solve_dantzig
+from repro_torch.core.clime import (
+    solve_clime_columns,
+    solve_clime_columns_full,
+    symmetrize_min,
+)
+from repro_torch.core.dantzig import DantzigConfig
+from repro_torch.core.solver_dispatch import solve_dantzig, solve_dantzig_full
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.spectral import spectral_factor
+from repro_torch.kernels.dantzig_fused import AdmmState
+from repro_torch.kernels.spectral import SpectralFactor, spectral_factor
 
 
 class HeadStats(NamedTuple):
@@ -95,40 +100,76 @@ def debias(sigma: torch.Tensor, rhs: torch.Tensor, beta_hat: torch.Tensor,
 
 
 class WorkerSolves(NamedTuple):
-    """One machine batch's heavy lifting: statistics and both solves."""
+    """One machine batch's heavy lifting: statistics and both solves.
+
+    The warm-carry fields (``rho_*`` / ``state_*`` / ``iters_*``) are
+    filled only by ``full=True`` solves; the narrow mode leaves them None.
+    """
 
     stats: HeadStats
     beta_hat: torch.Tensor  # (..., d, K) biased local direction block
     theta: torch.Tensor  # (..., d, d) CLIME block
+    valid: torch.Tensor | None  # (cols,) non-pad mask (sharded paths only)
+    rho_beta: torch.Tensor | None  # warm carries of the two solves
+    rho_theta: torch.Tensor | None
+    state_beta: AdmmState | None
+    state_theta: AdmmState | None
+    iters_beta: torch.Tensor | None  # executed ADMM iterations per column
+    iters_theta: torch.Tensor | None
+    # the machines' ONE factorization, shared by both solves
+    factor: SpectralFactor | None = None
 
 
 def worker_solves(head, *data: torch.Tensor, lam, lam_prime,
                   cfg: DantzigConfig = DantzigConfig(), model_axis: str | None = None,
-                  symmetrize: bool = False, full: bool = False) -> WorkerSolves:
-    """Run the machines' ADMM solves (direction block + CLIME columns)."""
+                  rho_beta=None, rho_theta=None, state_beta: AdmmState | None = None,
+                  state_theta: AdmmState | None = None, symmetrize: bool = False,
+                  full: bool = False) -> WorkerSolves:
+    """Run the machines' ADMM solves (direction block + CLIME columns).
+
+    ``rho_*`` / ``state_*`` thread warm penalties and ADMM states into
+    the two solves.  ``full=True`` routes both through
+    :func:`~repro_torch.core.solver_dispatch.solve_dantzig_full` and fills
+    the warm-carry fields of the result.
+    """
     hs = head.stats(*data)
     return solves_from_stats(hs, lam=lam, lam_prime=lam_prime, cfg=cfg,
-                             model_axis=model_axis, symmetrize=symmetrize, full=full)
+                             model_axis=model_axis, rho_beta=rho_beta, rho_theta=rho_theta,
+                             state_beta=state_beta, state_theta=state_theta,
+                             symmetrize=symmetrize, full=full)
 
 
 def solves_from_stats(hs: HeadStats, *, lam, lam_prime, cfg: DantzigConfig = DantzigConfig(),
-                      model_axis: str | None = None, symmetrize: bool = False,
+                      model_axis: str | None = None, rho_beta=None, rho_theta=None,
+                      state_beta: AdmmState | None = None,
+                      state_theta: AdmmState | None = None, symmetrize: bool = False,
                       full: bool = False) -> WorkerSolves:
     """The solve body of :func:`worker_solves`, from pre-built statistics."""
     if model_axis is not None:
         raise NotImplementedError(
             "the model-axis (sharded CLIME) worker comes with the port's mesh slice")
-    if full:
-        raise NotImplementedError(f"full=True {NEXT_SLICE}")
     # ONE eigendecomposition for all machines: the direction solve and
     # every CLIME column share this factor (it is rho- and lam-independent).
     factor = spectral_factor(hs.sigma)
-    d = hs.rhs.shape[-2]
-    beta_hat = solve_dantzig(factor, hs.rhs, lam, cfg)
-    theta = solve_clime_columns(factor, torch.arange(d, device=hs.rhs.device), lam_prime, cfg)
+    cols = torch.arange(hs.rhs.shape[-2], device=hs.rhs.device)
+    if full:
+        dir_res = solve_dantzig_full(factor, hs.rhs, lam, cfg, rho=rho_beta, state=state_beta)
+        theta_res = solve_clime_columns_full(factor, cols, lam_prime, cfg, rho=rho_theta,
+                                             state=state_theta)
+        beta_hat, theta = dir_res.beta, theta_res.beta
+        carries = dict(rho_beta=dir_res.rho, rho_theta=theta_res.rho,
+                       state_beta=dir_res.state, state_theta=theta_res.state,
+                       iters_beta=dir_res.iters, iters_theta=theta_res.iters)
+    else:
+        beta_hat = solve_dantzig(factor, hs.rhs, lam, cfg, rho=rho_beta, state=state_beta)
+        theta = solve_clime_columns(factor, cols, lam_prime, cfg, rho=rho_theta,
+                                    state=state_theta)
+        carries = dict(rho_beta=None, rho_theta=None, state_beta=None, state_theta=None,
+                       iters_beta=None, iters_theta=None)
     if symmetrize:
         theta = symmetrize_min(theta)
-    return WorkerSolves(stats=hs, beta_hat=beta_hat, theta=theta)
+    return WorkerSolves(stats=hs, beta_hat=beta_hat, theta=theta, valid=None, factor=factor,
+                        **carries)
 
 
 def apply_correction(theta: torch.Tensor, valid, resid: torch.Tensor,

@@ -5,13 +5,19 @@
   * CLIME precision estimate       Theta_hat          (eq. 3.2)
   * debiased estimator             beta_tilde         (eq. 3.4)
   * hard threshold                 HT(., t)           (eq. 3.5)
+
+Lambda tuning (the paper's lam ∝ sqrt(log d / n) with grid-tuned
+constants) goes through :func:`debiased_local_estimator_path`: the whole
+grid solves in one folded launch sharing one eigendecomposition
+(:mod:`repro_torch.core.path`), and :func:`tune_lambda_validation` picks
+each machine's operating point by held-out misclassification.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import pipeline
+from repro_torch.core import path, pipeline
 from repro_torch.core.dantzig import DantzigConfig
 from repro_torch.core.pipeline import BinaryHead, SuffStats, suff_stats  # noqa: F401
 from repro_torch.core.solver_dispatch import solve_dantzig
@@ -34,6 +40,45 @@ def debiased_local_estimator(x: torch.Tensor, y: torch.Tensor, lam, lam_prime=No
         BinaryHead(), x, y, lam=lam, lam_prime=lam if lam_prime is None else lam_prime,
         cfg=cfg, symmetrize=symmetrize)
     return beta_tilde[..., 0], beta_hat[..., 0]
+
+
+def debiased_local_estimator_path(x: torch.Tensor, y: torch.Tensor, lams, lam_prime=None,
+                                  cfg: DantzigConfig = DantzigConfig(), rho_beta=None,
+                                  state_beta=None, symmetrize: bool = False
+                                  ) -> path.WorkerPathResult:
+    """The worker pipeline at every lambda of ``lams``, for every machine at once.
+
+    One eigendecomposition, one folded direction solve and one CLIME
+    solve serve the whole grid.  ``lam_prime=None`` pins the CLIME
+    radius to the middle of the grid, ``lams[L // 2]``.  ``rho_beta`` /
+    ``state_beta`` take the warm carries of a previous sweep's result
+    (with ``cfg.tol`` set a resumed sweep exits in fewer iterations).
+    Returns the :class:`~repro_torch.core.path.WorkerPathResult`
+    ((..., L, d, 1) blocks).
+    """
+    lams = torch.as_tensor(lams, dtype=torch.float32, device=x.device)
+    if lam_prime is None:
+        lam_prime = lams[lams.shape[0] // 2]
+    return path.worker_debiased_path(BinaryHead(), x, y, lams=lams, lam_prime=lam_prime,
+                                     cfg=cfg, rho_beta=rho_beta, state_beta=state_beta,
+                                     symmetrize=symmetrize)
+
+
+def tune_lambda_validation(result: path.WorkerPathResult, z_val: torch.Tensor,
+                           labels_val: torch.Tensor):
+    """Pick lambda by held-out misclassification of each machine's Fisher rule.
+
+    ``result.stats.aux`` carries every machine's (mu1, mu2), so the rule
+    needs only the validation draw z_val (n, d), labels_val (n,).
+    Returns ``(idx, error_rates)``: (...,) and (..., L); the tuned
+    estimate is ``path.take_lambda(result.beta_tilde, idx)``.
+    """
+    s = result.stats.aux
+    mu = 0.5 * (s.mu1 + s.mu2)  # (..., d)
+    scores = (z_val - mu.unsqueeze(-2)) @ result.beta_tilde[..., 0].mT  # (..., n, L)
+    pred = torch.where(scores > 0, 0, 1)
+    errors = (pred != labels_val.unsqueeze(-1)).to(torch.float32).mean(-2)
+    return errors.argmin(-1), errors
 
 
 def hard_threshold(beta: torch.Tensor, t) -> torch.Tensor:

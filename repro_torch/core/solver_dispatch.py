@@ -4,10 +4,17 @@
     The eager ADMM in :func:`repro_torch.core.dantzig.solve_dantzig_scan`,
     selected when ``cfg.fused`` is False (the only path with adaptive rho).
 ``fused`` / ``fused_blocked``
-    The fused kernel (K2) with all k columns of a machine in one block,
-    or tiled into column blocks by the Hopper blocking model
+    The fused kernels with all k columns of a machine in one block, or
+    tiled into column blocks by the Hopper blocking model
     (:func:`repro_torch.kernels.dantzig_fused.pick_block_k`, or the
-    ``cfg.block_k`` override).
+    ``cfg.block_k`` override): K2 for the fixed-iteration cold solve,
+    K3 (``state_io``) for the tol-gated and warm-started modes.
+
+``cfg.tol`` switches every path from the fixed-iteration schedule to
+the residual-gated early exit, and every entry point accepts a warm
+:class:`~repro_torch.kernels.dantzig_fused.AdmmState` to resume from.
+:func:`solve_dantzig_full` returns the full result (solution, warm rho,
+resumable state, executed iterations per column).
 
 Unlike the TPU, there is no capacity fallback from fused to scan: A and
 Q stream from L2, so ``cfg.fused=True`` means the kernel at every d
@@ -45,24 +52,31 @@ class SolverChoice(NamedTuple):
     block_k: int | None = None  # columns per block (fused paths)
 
 
-def select_solver(cfg: "_dantzig.DantzigConfig", d: int, k: int) -> SolverChoice:
-    """Pick the solver implementation for a (d, k) batch (the same on every device)."""
+def select_solver(cfg: "_dantzig.DantzigConfig", d: int, k: int,
+                  state_io: bool | None = None) -> SolverChoice:
+    """Pick the solver implementation for a (d, k) batch (the same on every device).
+
+    ``state_io`` sizes the blocks for the state kernel (K3); None
+    derives it from the config (``cfg.tol`` routes to K3).
+    """
     if not cfg.fused:
         return SolverChoice("scan")
+    if state_io is None:
+        state_io = cfg.tol is not None
     budget = SMEM_BYTES if cfg.vmem_budget is None else min(cfg.vmem_budget, SMEM_BYTES)
-    bk = pick_block_k(d, k, budget)
+    bk = pick_block_k(d, k, budget, state_io)
     if cfg.block_k is not None:
-        bk = max(1, min(cfg.block_k, k, max_block_k(d, budget)))
+        bk = max(1, min(cfg.block_k, k, max_block_k(d, budget, state_io)))
     return SolverChoice("fused" if bk >= k else "fused_blocked", bk)
 
 
 class SolveResult(NamedTuple):
-    """Everything a dispatched solve can hand back (filled by the K3 slice)."""
+    """Everything a dispatched solve can hand back."""
 
     beta: torch.Tensor  # the sparse solution, trailing shape of b
     rho: torch.Tensor  # (..., k) warm per-problem ADMM penalties
     state: AdmmState  # full final state, resumable via `state=`
-    iters: torch.Tensor  # (k,) executed iterations per column
+    iters: torch.Tensor  # (..., k) int32 executed iterations per column
 
 
 def solve_dantzig(a, b: torch.Tensor, lam, cfg: "_dantzig.DantzigConfig | None" = None, *,
@@ -85,13 +99,15 @@ def solve_dantzig_with_rho(a, b: torch.Tensor, lam,
     if cfg is None:
         cfg = _dantzig.DantzigConfig()
     if cfg.tol is not None or state is not None:
-        raise NotImplementedError(f"cfg.tol and state {_dantzig.NEXT_SLICE}")
+        # the adaptive / warm-started modes carry full state anyway
+        result = solve_dantzig_full(a, b, lam, cfg, rho=rho, state=state)
+        return result.beta, result.rho
     mat = sigma_of(a)
     squeeze = b.ndim == mat.ndim - 1
     b2 = b.unsqueeze(-1) if squeeze else b
     d, k = b2.shape[-2:]
     b2 = b2.expand(*mat.shape[:-2], d, k)
-    choice = select_solver(cfg, d, k)
+    choice = select_solver(cfg, d, k, state_io=False)
     if choice.kind == "scan":
         out, rho_final = _dantzig.solve_dantzig_scan(a, b2, lam, cfg, rho0=rho, return_rho=True)
     else:
@@ -105,6 +121,44 @@ def solve_dantzig_with_rho(a, b: torch.Tensor, lam,
     return out, rho_final
 
 
-def solve_dantzig_full(a, b, lam, cfg=None, *, rho=None, state=None) -> SolveResult:
-    """The full warm-carry solve: not in this slice."""
-    raise NotImplementedError(f"solve_dantzig_full {_dantzig.NEXT_SLICE}")
+def solve_dantzig_full(a, b: torch.Tensor, lam,
+                       cfg: "_dantzig.DantzigConfig | None" = None, *,
+                       rho=None, state: AdmmState | None = None) -> SolveResult:
+    """Dispatched solve returning the full :class:`SolveResult`.
+
+    Honours ``cfg.tol`` / ``cfg.check_every`` on every path, resumes
+    from ``state`` (leaves shaped like ``b``) when given, and returns
+    the final state and the executed iterations per column next to the
+    solution and warm rho.  Counts come at the solver's own granularity,
+    repeated over columns: one per machine on the scan path, one per
+    column block on the fused paths.
+    """
+    if cfg is None:
+        cfg = _dantzig.DantzigConfig()
+    mat = sigma_of(a)
+    squeeze = b.ndim == mat.ndim - 1
+    b2 = b.unsqueeze(-1) if squeeze else b
+    d, k = b2.shape[-2:]
+    b2 = b2.expand(*mat.shape[:-2], d, k)
+    if state is not None and squeeze:
+        state = AdmmState(*(leaf.unsqueeze(-1) for leaf in state))
+    choice = select_solver(cfg, d, k, state_io=True)
+    if choice.kind == "scan":
+        out, rho_final, fstate, iters = _dantzig.solve_dantzig_scan(
+            a, b2, lam, cfg, rho0=rho, return_rho=True, state0=state, return_info=True)
+        iters_col = iters.unsqueeze(-1).expand(*iters.shape, k)
+    else:
+        rho_in = cfg.rho if rho is None else rho
+        fused = kops.dantzig_fused(a, b2, lam, iters=cfg.max_iters, rho=rho_in,
+                                   alpha=cfg.alpha, block_k=choice.block_k, tol=cfg.tol,
+                                   check_every=cfg.check_every, state=state,
+                                   return_info=True)
+        out, fstate = fused.beta, fused.state
+        rho_final = per_column(rho_in, b2)[..., 0, :]
+        # per-block counts -> per-column (each block's columns share it)
+        iters_col = fused.iters.repeat_interleave(choice.block_k, dim=-1)[..., :k]
+    out = out.to(b.dtype)
+    if squeeze:
+        return SolveResult(out[..., 0], rho_final[..., 0],
+                           AdmmState(*(leaf[..., 0] for leaf in fstate)), iters_col[..., 0])
+    return SolveResult(out, rho_final, fstate, iters_col)

@@ -5,7 +5,8 @@ The JAX package hands its objects over as numpy arrays or plain dicts
 them into the port's tensors and types, so both packages compute from
 exactly the same inputs.  The system has no weights: its parameters
 are the problem, the spectral factor, the ADMM state and the solver
-configuration.
+configuration; a lambda sweep carries its per-grid-point results and
+states on a leading L axis (:func:`path_result_from_numpy`).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dantzig import DantzigConfig
+from repro_torch.core.path import PathResult
 from repro_torch.device import require_device
 from repro_torch.kernels.dantzig_fused import AdmmState
 from repro_torch.kernels.spectral import SpectralFactor
@@ -40,6 +42,22 @@ def factor_from_numpy(sigma, q, evals, device: str | torch.device = "cuda") -> S
 def state_from_numpy(z, w, u1, u2, device: str | torch.device = "cuda") -> AdmmState:
     """A reference ``AdmmState`` (z, w, u1, u2) as the port's."""
     return AdmmState(*(tensor(v, device) for v in (z, w, u1, u2)))
+
+
+def path_result_from_numpy(fields: Mapping, device: str | torch.device = "cuda") -> PathResult:
+    """A reference ``PathResult._asdict()`` as the port's, leaves on their leading L axis.
+
+    ``state`` is a mapping of the four leaves (``AdmmState._asdict()``)
+    or their sequence; ``iters`` comes across as int32.
+    """
+    state = fields["state"]
+    if isinstance(state, Mapping):
+        state = [state[name] for name in AdmmState._fields]
+    return PathResult(
+        beta=tensor(fields["beta"], device), lam=tensor(fields["lam"], device),
+        kkt=tensor(fields["kkt"], device), rho=tensor(fields["rho"], device),
+        state=state_from_numpy(*state, device=device),
+        iters=tensor(fields["iters"], device, dtype=torch.int32))
 
 
 def dantzig_config_from_dict(fields: Mapping) -> DantzigConfig:

@@ -15,12 +15,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.dantzig_fused import dantzig_fused_cuda
+from repro_torch.kernels.dantzig_fused import (
+    AdmmState,
+    FusedSolveResult,
+    dantzig_fused_cuda,
+    dantzig_fused_state_cuda,
+    resolve_block_k,
+)
 from repro_torch.kernels.gram import gram_cuda
 from repro_torch.kernels.soft_threshold import soft_threshold_triton
 from repro_torch.kernels.spectral import as_spectral_factor
 
-LAUNCHES = {"gram": 0, "dantzig_fused": 0, "soft_threshold": 0}
+LAUNCHES = {"gram": 0, "dantzig_fused": 0, "dantzig_fused_state": 0, "soft_threshold": 0}
 
 
 def reset_launches() -> None:
@@ -56,31 +62,72 @@ def soft_threshold(x: torch.Tensor, t) -> torch.Tensor:
 
 
 def dantzig_fused(a, b: torch.Tensor, lam, *, iters: int = 500, rho=1.0,
-                  alpha: float = 1.7, block_k: int | None = None) -> torch.Tensor:
-    """Whole fixed-iteration Dantzig/CLIME ADMM solve, cold start.
+                  alpha: float = 1.7, block_k: int | None = None, tol: float | None = None,
+                  check_every: int = 10, state: AdmmState | None = None,
+                  return_info: bool = False):
+    """Whole Dantzig/CLIME ADMM solve in the fused kernels.
 
     ``a`` is a (..., d, d) matrix, factorized here, or its
     :class:`~repro_torch.kernels.spectral.SpectralFactor`, used as is.
     ``b`` is (..., d, k) with the same leading (machine) dimensions;
     ``lam`` and ``rho`` are scalars, (k,) per column or (..., k).
-    Returns the sparse ADMM copy w, shaped like ``b``.
+
+    With none of ``tol``, ``state`` and ``return_info`` this is K2:
+    ``iters`` iterations from zero, returning the sparse ADMM copy w,
+    shaped like ``b``.  Any of them routes to K3: ``state`` (leaves
+    shaped like ``b``) resumes a solve, ``tol`` gates each column block
+    on its max scaled residual every ``check_every`` iterations (capped
+    at ``iters``), and ``return_info`` returns the
+    :class:`~repro_torch.kernels.dantzig_fused.FusedSolveResult`, whose
+    ``iters`` is (..., num_blocks).  ``block_k`` None sizes the blocks
+    with the Hopper blocking model on every device.
     """
     factor = as_spectral_factor(a)
+    *batch, d, k = b.shape
+    state_io = tol is not None or state is not None or return_info
+    if state_io:
+        bk = resolve_block_k(d, k, block_k, state_io=True)
+        result = _dantzig_fused_state(factor, b, lam, iters, rho, alpha, bk, tol,
+                                      check_every, state)
+        return result if return_info else result.beta
     if not _on_card(b):
         return ref.dantzig_fused_ref(factor.sigma, factor.q, factor.inv_eig, b, lam,
                                      iters=iters, rho=rho, alpha=alpha)
+    out = dantzig_fused_cuda(*_machines(factor, b, lam, rho), iters=iters, alpha=alpha,
+                             block_k=block_k)
+    LAUNCHES["dantzig_fused"] += 1
+    return out.reshape(*batch, d, k)
+
+
+def _machines(factor, b, lam, rho):
+    """The kernels' operands: every argument as a contiguous (m, ...) tensor."""
     *batch, d, k = b.shape
-    sigma = factor.sigma.expand(*batch, d, d)
 
     def machines(t, *tail):
         return t.expand(*batch, *tail).reshape(-1, *tail).contiguous()
 
     cols = (*batch, k)
-    out = dantzig_fused_cuda(
-        machines(sigma, d, d), machines(factor.q, d, d), machines(factor.inv_eig, d),
-        machines(b.to(torch.float32), d, k),
-        ref.per_column(lam, b).reshape(cols).contiguous().reshape(-1, k),
-        ref.per_column(rho, b).reshape(cols).contiguous().reshape(-1, k),
-        iters=iters, alpha=alpha, block_k=block_k)
-    LAUNCHES["dantzig_fused"] += 1
-    return out.reshape(*batch, d, k)
+    return (machines(factor.sigma, d, d), machines(factor.q, d, d),
+            machines(factor.inv_eig, d), machines(b.to(torch.float32), d, k),
+            ref.per_column(lam, b).reshape(cols).contiguous().reshape(-1, k),
+            ref.per_column(rho, b).reshape(cols).contiguous().reshape(-1, k))
+
+
+def _dantzig_fused_state(factor, b, lam, iters, rho, alpha, bk, tol, check_every,
+                         state) -> FusedSolveResult:
+    """K3 on the card, its plain version on the CPU, with ``bk`` columns per block."""
+    if not _on_card(b):
+        w, fstate, counts = ref.dantzig_fused_state_ref(
+            factor.sigma, factor.q, factor.inv_eig, b, lam, iters=iters, rho=rho,
+            alpha=alpha, block_k=bk, tol=tol, check_every=check_every, state=state)
+        return FusedSolveResult(w, fstate, counts)
+    *batch, d, k = b.shape
+    leaves = None
+    if state is not None:
+        leaves = AdmmState(*(leaf.to(torch.float32).expand(*batch, d, k).reshape(-1, d, k)
+                             .contiguous() for leaf in state))
+    out = dantzig_fused_state_cuda(*_machines(factor, b, lam, rho), leaves, iters=iters,
+                                   alpha=alpha, tol=tol, check_every=check_every, block_k=bk)
+    LAUNCHES["dantzig_fused_state"] += 1
+    fstate = AdmmState(*(leaf.reshape(*batch, d, k) for leaf in out.state))
+    return FusedSolveResult(fstate.w, fstate, out.iters.reshape(*batch, -1))

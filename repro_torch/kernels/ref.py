@@ -7,6 +7,9 @@ against.  Leading dimensions are machines.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.dantzig_fused import AdmmState
 
 
 def per_column(v, b: torch.Tensor) -> torch.Tensor:
@@ -47,12 +50,98 @@ def dantzig_fused_ref(a, q, inv_eig, b, lam, *, iters=500, rho=1.0, alpha=1.7):
 
     z = w = u1 = u2 = torch.zeros_like(b)
     for _ in range(iters):
-        beta = q @ (inv * (qt @ (a @ (z + b - u1) + (w - u2))))
-        ab = a @ beta
-        ab_r = alpha * ab + (1.0 - alpha) * (z + b)
-        beta_r = alpha * beta + (1.0 - alpha) * w
-        z = torch.minimum(torch.maximum(ab_r - b + u1, -lam), lam)
-        w = soft_threshold_ref(beta_r + u2, 1.0 / rho)
-        u1 = u1 + ab_r - z - b
-        u2 = u2 + beta_r - w
+        z, w, u1, u2 = _admm_iteration(a, q, qt, inv, b, lam, 1.0 / rho, alpha, z, w, u1, u2)
     return w
+
+
+def _admm_iteration(a, q, qt, inv, b, lam, inv_rho, alpha, z, w, u1, u2):
+    """One exact two-block ADMM iteration, as the kernels compute it."""
+    beta = q @ (inv * (qt @ (a @ (z + b - u1) + (w - u2))))
+    ab = a @ beta
+    ab_r = alpha * ab + (1.0 - alpha) * (z + b)
+    beta_r = alpha * beta + (1.0 - alpha) * w
+    z_new = torch.minimum(torch.maximum(ab_r - b + u1, -lam), lam)
+    w_new = soft_threshold_ref(beta_r + u2, inv_rho)
+    u1 = u1 + ab_r - z_new - b
+    u2 = u2 + beta_r - w_new
+    return z_new, w_new, u1, u2
+
+
+def dantzig_fused_state_ref(a, q, inv_eig, b, lam, *, iters=500, rho=1.0, alpha=1.7,
+                            block_k=None, tol=None, check_every=10,
+                            state: AdmmState | None = None, trace: list | None = None):
+    """The state kernel's (K3's) math in plain PyTorch.
+
+    Shapes as :func:`dantzig_fused_ref`; ``state`` leaves broadcast to
+    ``b``'s shape (None: the zero state).  With ``tol`` None, ``iters``
+    iterations from ``state``.  Otherwise the columns are cut into
+    contiguous blocks of ``block_k`` (None: one block), the ragged tail
+    padded with neutral columns (b = 0, lam = rho = 1, zero state), and
+    every block of every machine runs ``check_every``-iteration chunks,
+    the last clamped so the cap is exactly ``iters``, until its max
+    scaled residual
+
+        max(|A beta - z - b|, |beta - w|, rho_c |A dz + dw|_c)
+
+    over the block is at most ``tol`` (a NaN residual stops it too);
+    dz, dw are the chunk's last-iteration deltas.  A converged block
+    freezes while the others run on.  Returns ``(w, state, iters)`` with
+    iters (..., num_blocks) int32.  ``trace``, a list, receives every
+    chunk's (..., num_blocks) residual.
+    """
+    b = b.to(torch.float32)
+    *batch, d, k = b.shape
+    bk = k if block_k is None else max(1, min(block_k, k))
+    nb = -(-k // bk)
+    pad = nb * bk - k
+
+    def blocks(x, fill=0.0):  # (..., r, k) -> (..., nb, r, bk), the tail padded
+        x = F.pad(x.expand(*batch, x.shape[-2], k), (0, pad), value=fill)
+        return x.unflatten(-1, (nb, bk)).movedim(-2, -3)
+
+    bb = blocks(b)
+    lam_b = blocks(per_column(lam, b), 1.0)
+    rho_b = blocks(per_column(rho, b), 1.0)
+    inv_rho = 1.0 / rho_b
+    a4, q4 = a.unsqueeze(-3), q.unsqueeze(-3)
+    qt4 = q4.mT
+    inv = inv_eig.unsqueeze(-1).unsqueeze(-3)
+    if state is None:
+        z = w = u1 = u2 = torch.zeros_like(bb)
+    else:
+        z, w, u1, u2 = (blocks(leaf.to(torch.float32)) for leaf in state)
+
+    counts = torch.zeros((*batch, nb), dtype=torch.int32, device=b.device)
+    if tol is None:
+        for _ in range(iters):
+            z, w, u1, u2 = _admm_iteration(a4, q4, qt4, inv, bb, lam_b, inv_rho, alpha,
+                                           z, w, u1, u2)
+        counts += iters
+    else:
+        active = torch.ones((*batch, nb, 1, 1), dtype=torch.bool, device=b.device)
+        it = 0
+        while it < iters and bool(active.any()):
+            n = min(check_every, iters - it)
+            for _ in range(n):
+                new = _admm_iteration(a4, q4, qt4, inv, bb, lam_b, inv_rho, alpha,
+                                      z, w, u1, u2)
+                dz, dw = new[0] - z, new[1] - w
+                z, w, u1, u2 = (torch.where(active, v, old)
+                                for v, old in zip(new, (z, w, u1, u2)))
+            it += n
+            counts = torch.where(active[..., 0, 0], counts + n, counts)
+            beta = q4 @ (inv * (qt4 @ (a4 @ (z + bb - u1) + (w - u2))))
+            ab = a4 @ beta
+            r_pri = torch.maximum((ab - z - bb).abs().amax((-2, -1)),
+                                  (beta - w).abs().amax((-2, -1)))
+            s_dual = (rho_b * (a4 @ dz + dw).abs().amax(-2, keepdim=True)).amax((-2, -1))
+            res = torch.maximum(r_pri, s_dual)
+            if trace is not None:
+                trace.append(res)
+            active = active & (res > tol)[..., None, None]
+
+    def unblock(x):
+        return x.movedim(-3, -2).flatten(-2)[..., :k]
+
+    z, w, u1, u2 = map(unblock, (z, w, u1, u2))
+    return w, AdmmState(z, w, u1, u2), counts

@@ -161,7 +161,8 @@ def test_cpu_wrappers_launch_nothing():
     ops.gram(x, x.mean(1))
     ops.soft_threshold(x, 0.1)
     ops.dantzig_fused(torch.eye(6), torch.eye(6), 0.1, iters=3)
-    assert ops.LAUNCHES == {"gram": 0, "dantzig_fused": 0, "soft_threshold": 0}
+    assert ops.LAUNCHES == {"gram": 0, "dantzig_fused": 0, "dantzig_fused_state": 0,
+                            "soft_threshold": 0}
 
 
 # --- the Hopper blocking model ------------------------------------------------
@@ -215,3 +216,152 @@ def test_plain_versions_match_reference_oracles():
                                                 iters=100))
     got = ref.dantzig_fused_ref(_t(sigma), _t(q), _t(inv), _t(b), 0.1, iters=100).numpy()
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# --- K3: the warm-state, tol-gated fused ADMM ------------------------------------
+
+
+def _state_inputs(m=None):
+    """AR(0.3) sample covariance(s) at d = 24, k = 11 unit right-hand sides, per-column lam/rho.
+
+    With ``block_k=4`` the columns form blocks of 4, 4 and a ragged
+    tail of 3 that exit the 1e-3 gate at different counts.
+    """
+    d, k = 24, 11
+    seeds = [1] if m is None else list(range(1, m + 1))
+    covs = [_sample_cov(d, 0.3, 400, seed=s) for s in seeds]
+    rng = np.random.default_rng(7)
+    b = np.eye(d, dtype=np.float32)[:, :k]
+    lam = np.linspace(0.05, 0.6, k).astype(np.float32)
+    rho = rng.uniform(0.8, 1.25, k).astype(np.float32)
+    sigma, q, evals = (np.stack(v) if m else v[0] for v in zip(*covs))
+    return sigma, q, evals, b, lam, rho
+
+
+def _pallas_state(sigma, q, evals, b, lam, rho, *, iters, tol, state=None, block_k=4):
+    from repro.kernels.dantzig_fused import AdmmState as JaxAdmmState
+
+    inv = (1.0 / (evals * evals + 1.0)).astype(np.float32)
+    jstate = None if state is None else JaxAdmmState(*(jnp.asarray(v) for v in state))
+    res = dantzig_fused_pallas(*(jnp.asarray(v) for v in (sigma, q, inv, b, lam)),
+                               jnp.asarray(rho), iters=iters, block_k=block_k, interpret=True,
+                               tol=tol, check_every=10, state=jstate, return_info=True)
+    return np.asarray(res.beta), [np.asarray(v) for v in res.state], np.asarray(res.iters)
+
+
+def _port_state(sigma, q, evals, b, lam, rho, *, iters, tol, state=None, block_k=4):
+    factor = interop.factor_from_numpy(sigma, q, evals, device="cpu")
+    st = None if state is None else interop.state_from_numpy(*state, device="cpu")
+    res = ops.dantzig_fused(factor, _t(b), _t(lam), iters=iters, rho=_t(rho), block_k=block_k,
+                            tol=tol, check_every=10, state=st, return_info=True)
+    return res.beta.numpy(), [v.numpy() for v in res.state], res.iters.numpy()
+
+
+def _assert_state_close(got, want):
+    w, leaves, iters = got
+    w_want, leaves_want, iters_want = want
+    np.testing.assert_array_equal(iters, iters_want)
+    scale = np.abs(w_want).max()
+    assert np.abs(w - w_want).max() <= 1e-5 * scale
+    for name, g, v in zip("z w u1 u2".split(), leaves, leaves_want):
+        assert np.abs(g - v).max() <= 1e-5 * max(scale, np.abs(v).max()), name
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_dantzig_fused_state_matches_pallas_per_block(warm):
+    # three blocks (4, 4, ragged 3) gated on their own: w, the four state
+    # leaves within the 1e-5 pin, and every block's iteration count equal
+    sigma, q, evals, b, lam, rho = _state_inputs()
+    state = None
+    if warm:
+        _, state, _ = _pallas_state(sigma, q, evals, b, lam, rho, iters=40, tol=None)
+    want = _pallas_state(sigma, q, evals, b, lam, rho, iters=200, tol=1e-3, state=state)
+    got = _port_state(sigma, q, evals, b, lam, rho, iters=200, tol=1e-3, state=state)
+    _assert_state_close(got, want)
+    assert len(set(want[2].tolist())) >= 2, f"blocks exit together: {want[2]}"
+    assert want[2].max() < 200
+
+
+def test_dantzig_fused_state_fixed_iterations_from_a_warm_state_matches_pallas():
+    sigma, q, evals, b, lam, rho = _state_inputs()
+    _, state, _ = _pallas_state(sigma, q, evals, b, lam, rho, iters=30, tol=None)
+    want = _pallas_state(sigma, q, evals, b, lam, rho, iters=70, tol=None, state=state)
+    got = _port_state(sigma, q, evals, b, lam, rho, iters=70, tol=None, state=state)
+    _assert_state_close(got, want)
+    np.testing.assert_array_equal(got[2], [70, 70, 70])
+
+
+def test_dantzig_fused_state_nan_residual_stops_the_block():
+    # res > tol is False for NaN: a NaN block stops after its first chunk,
+    # as in the reference, while the clean blocks run on
+    sigma, q, evals, b, lam, rho = _state_inputs()
+    b = b.copy()
+    b[0, 0] = np.nan
+    _, _, want = _pallas_state(sigma, q, evals, b, lam, rho, iters=200, tol=1e-3)
+    _, _, got = _port_state(sigma, q, evals, b, lam, rho, iters=200, tol=1e-3)
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == 10 and got[1:].min() > 10
+
+
+def test_dantzig_fused_state_resume_is_exact():
+    # a fixed-rho state determines the next iteration completely, so n1
+    # iterations resumed for n2 more equal one run of n1 + n2, bit for bit
+    sigma, q, evals, b, lam, rho = _state_inputs()
+    factor = interop.factor_from_numpy(sigma, q, evals, device="cpu")
+    kw = dict(rho=_t(rho), block_k=4, return_info=True)
+    first = ops.dantzig_fused(factor, _t(b), _t(lam), iters=35, state=ref.AdmmState.zeros(24, 11),
+                              **kw)
+    resumed = ops.dantzig_fused(factor, _t(b), _t(lam), iters=45, state=first.state, **kw)
+    whole = ops.dantzig_fused(factor, _t(b), _t(lam), iters=80, **kw)
+    for got, want in zip(resumed.state, whole.state):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    np.testing.assert_array_equal(whole.iters.numpy(), [80, 80, 80])
+
+
+def test_dantzig_fused_state_at_tol_none_equals_the_fixed_kernel():
+    sigma, q, evals, b, lam, rho = _state_inputs()
+    factor = interop.factor_from_numpy(sigma, q, evals, device="cpu")
+    fixed = ops.dantzig_fused(factor, _t(b), _t(lam), iters=60, rho=_t(rho))
+    state = ops.dantzig_fused(factor, _t(b), _t(lam), iters=60, rho=_t(rho), return_info=True)
+    torch.testing.assert_close(state.beta, fixed, rtol=0, atol=1e-7)
+
+
+def test_dantzig_fused_state_gates_each_machine_on_its_own():
+    # machines on the leading axis: each (machine, block) keeps its own
+    # count, equal to the machine solved alone
+    sigma, q, evals, b, lam, rho = _state_inputs(m=3)
+    factor = interop.factor_from_numpy(sigma, q, evals, device="cpu")
+    kw = dict(iters=200, rho=_t(rho), block_k=4, tol=1e-3, return_info=True)
+    batched = ops.dantzig_fused(factor, _t(b).expand(3, 24, 11), _t(lam), **kw)
+    assert batched.iters.shape == (3, 3) and batched.iters.dtype == torch.int32
+    for i in range(3):
+        one = ops.dantzig_fused(type(factor)(*(f[i] for f in factor)), _t(b), _t(lam), **kw)
+        torch.testing.assert_close(batched.iters[i], one.iters, rtol=0, atol=0)
+        torch.testing.assert_close(batched.beta[i], one.beta, rtol=0, atol=1e-6)
+
+
+def test_cpu_state_wrapper_launches_nothing():
+    ops.reset_launches()
+    ops.dantzig_fused(torch.eye(6), torch.eye(6), 0.1, iters=3, tol=1e-3, return_info=True)
+    assert ops.LAUNCHES["dantzig_fused_state"] == 0
+
+
+def test_state_io_blocking_model_at_paper_shape():
+    # K3 keeps its chunk deltas in the product buffers, so at d = 200 it
+    # takes the same 40-column tile as K2: CLIME's k = 200 is 5 blocks of
+    # 40 (100 blocks for m = 20, one wave on 132 SMs), the k = 8 direction
+    # fold one block of 8
+    assert fused_model.max_block_k(200, state_io=True) == 40
+    assert fused_model.pick_block_k(200, 200, state_io=True) == 40
+    assert fused_model.pick_block_k(200, 8, state_io=True) == 8
+    assert (fused_model.fused_block_smem_bytes(200, 40, state_io=True)
+            <= fused_model.SMEM_BYTES
+            < fused_model.fused_block_smem_bytes(200, 48, state_io=True))
+    assert select_solver(DantzigConfig(fused=True, tol=1e-4), 200, 200) == ("fused_blocked", 40)
+    # the extra rows make K3 the first to run out: one column at d = 8301
+    # fits K2's footprint and not K3's
+    assert fused_model.max_block_k(8301) == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_model.max_block_k(8301, state_io=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        select_solver(DantzigConfig(fused=True, tol=1e-4), 8301, 1)

@@ -119,15 +119,160 @@ def test_kkt_violation_matches_reference():
     assert got1 == pytest.approx(want1, rel=1e-5, abs=1e-6)
 
 
-@pytest.mark.parametrize("kw", [dict(tol=1e-4), dict(state0=True), dict(return_info=True)])
-def test_next_slice_modes_raise(kw):
-    sigma, b, lam = _inputs(d=16, k=2, seed=7)
-    cfg = DantzigConfig(max_iters=5)
-    if "tol" in kw:
-        cfg, kw = cfg._replace(tol=kw["tol"]), {}
-    elif "state0" in kw:
-        kw = {"state0": dantzig.AdmmState.zeros(16, 2)}
-    with pytest.raises(NotImplementedError, match="next slice"):
-        dantzig.solve_dantzig_scan(_t(sigma), _t(b), _t(lam), cfg, **kw)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        solver_dispatch.solve_dantzig_full(_t(sigma), _t(b), 0.1)
+def _scan_inputs(d=24, k=5, seed=8):
+    """A well-conditioned AR(0.3) sample covariance and CLIME-like columns for the tol gate."""
+    rng = np.random.default_rng(seed)
+    chol = np.linalg.cholesky(ar1_covariance(d, 0.3))
+    x = (rng.standard_normal((400, d)) @ chol.T).astype(np.float32)
+    xc = x - x.mean(0)
+    sigma = (xc.T @ xc / 400).astype(np.float32)
+    b = np.eye(d, dtype=np.float32)[:, :k]
+    lam = np.linspace(0.1, 0.5, k).astype(np.float32)
+    return sigma, b, lam
+
+
+def _jax_state(leaves):
+    from repro.kernels.dantzig_fused import AdmmState as JaxAdmmState
+
+    return JaxAdmmState(*(jnp.asarray(v) for v in leaves))
+
+
+def _close(got, want, pin=1e-5):
+    want = np.asarray(want)
+    assert np.abs(np.asarray(got) - want).max() <= pin * max(np.abs(want).max(), 1e-30)
+
+
+@pytest.mark.parametrize("mode", ["tol", "state0", "return_info"])
+def test_scan_state_modes_match_reference(mode):
+    # each of the three modes the port's scan gained, alone, against the
+    # reference's scan: the 1e-5 pin at 200 fixed-rho iterations, equal
+    # executed iterations, every state leaf
+    sigma, b, lam = _scan_inputs()
+    jcfg, cfg = _cfgs(max_iters=200, adapt_rho=False, **({"tol": 1e-3} if mode == "tol" else {}))
+    jkw, kw = {"return_info": True}, {"return_info": True}
+    if mode == "state0":
+        warm = jax_solve_dantzig_scan(jnp.asarray(sigma), jnp.asarray(b), jnp.asarray(lam),
+                                      jcfg._replace(max_iters=30), return_info=True)[1]
+        jkw["state0"] = warm
+        kw["state0"] = interop.state_from_numpy(*(np.asarray(v) for v in warm), device="cpu")
+    want_beta, want_state, want_iters = jax_solve_dantzig_scan(
+        jnp.asarray(sigma), jnp.asarray(b), jnp.asarray(lam), jcfg, **jkw)
+    beta, state, iters = dantzig.solve_dantzig_scan(_t(sigma), _t(b), _t(lam), cfg, **kw)
+    assert int(iters) == int(want_iters)
+    if mode == "tol":
+        assert int(iters) < 200
+    _close(beta, want_beta)
+    for got, want in zip(state, want_state):
+        _close(got, want)
+
+
+def test_scan_tol_with_adaptive_rho_matches_reference():
+    # the balancing index runs on the global iteration count across
+    # chunks; rho choices are discrete, so the pins are the executed
+    # count, the support and a 1e-3 l2 gap
+    sigma, b, lam = _scan_inputs(seed=9)
+    jcfg, cfg = _cfgs(max_iters=200, tol=1e-3, adapt_every=7)
+    want, want_rho, _, want_iters = jax_solve_dantzig_scan(
+        jnp.asarray(sigma), jnp.asarray(b), jnp.asarray(lam), jcfg, return_rho=True,
+        return_info=True)
+    got, got_rho, _, iters = dantzig.solve_dantzig_scan(_t(sigma), _t(b), _t(lam), cfg,
+                                                        return_rho=True, return_info=True)
+    assert int(iters) == int(want_iters) < 200
+    want, got = np.asarray(want), got.numpy()
+    assert ((got != 0) == (want != 0)).all()
+    assert np.linalg.norm(got - want) <= 1e-3
+    np.testing.assert_array_equal(got_rho.numpy(), np.asarray(want_rho))
+
+
+def test_scan_resume_restarts_the_balancing_index():
+    # a resumed call counts its iterations from 0 again, as the
+    # reference does: 20 + 30 resumed is not 50 straight once rho adapts
+    # (a far-off rho of 20 makes the balancing act)
+    sigma, b, lam = _scan_inputs(seed=10)
+    jcfg, cfg = _cfgs(max_iters=20, adapt_every=7, rho=20.0)
+    jwarm, jrho = jax_solve_dantzig_scan(jnp.asarray(sigma), jnp.asarray(b), jnp.asarray(lam),
+                                         jcfg, return_rho=True, return_info=True)[1:3][::-1]
+    jbeta = jax_solve_dantzig_scan(jnp.asarray(sigma), jnp.asarray(b), jnp.asarray(lam),
+                                   jcfg._replace(max_iters=30), jrho, state0=jwarm)
+    _, rho, warm, _ = dantzig.solve_dantzig_scan(_t(sigma), _t(b), _t(lam), cfg,
+                                                 return_rho=True, return_info=True)
+    beta = dantzig.solve_dantzig_scan(_t(sigma), _t(b), _t(lam), cfg._replace(max_iters=30),
+                                      rho, state0=warm)
+    straight = dantzig.solve_dantzig_scan(_t(sigma), _t(b), _t(lam), cfg._replace(max_iters=50))
+    _close(beta, jbeta)
+    assert not torch.equal(beta, straight)
+
+
+def test_scan_gate_is_per_machine():
+    # machines on the leading axis: a converged machine freezes while the
+    # others run on, so each machine's count and solution equal the
+    # machine solved alone
+    mats = [_scan_inputs(seed=s) for s in (11, 12, 13)]
+    sigma = _t(np.stack([m[0] for m in mats]))
+    b, lam = _t(mats[0][1]), _t(mats[0][2])
+    _, cfg = _cfgs(max_iters=200, tol=1e-3, adapt_rho=False)
+    beta, state, iters = dantzig.solve_dantzig_scan(sigma, b.expand(3, 24, 5), lam, cfg,
+                                                    return_info=True)
+    assert iters.shape == (3,) and iters.dtype == torch.int32
+    for i in range(3):
+        one_beta, _, one_iters = dantzig.solve_dantzig_scan(sigma[i], b, lam, cfg,
+                                                            return_info=True)
+        assert int(iters[i]) == int(one_iters)
+        torch.testing.assert_close(beta[i], one_beta, rtol=0, atol=1e-6)
+        want_iters = jax_solve_dantzig_scan(jnp.asarray(mats[i][0]), jnp.asarray(b.numpy()),
+                                            jnp.asarray(lam.numpy()), _cfgs(
+                                                max_iters=200, tol=1e-3, adapt_rho=False)[0],
+                                            return_info=True)[2]
+        assert int(iters[i]) == int(want_iters)
+    assert len(set(iters.tolist())) >= 2, iters
+
+
+@pytest.mark.parametrize("kind,block_k", [("scan", None), ("fused", None),
+                                          ("fused_blocked", 2)])
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_solve_dantzig_full_matches_reference(kind, block_k, warm):
+    # every dispatch path with tol and a warm state: solution, rho, state
+    # and per-column iteration counts (a block's count repeated over its
+    # columns) against the reference's solve_dantzig_full
+    from repro.core.solver_dispatch import solve_dantzig_full as jax_solve_dantzig_full
+
+    sigma, b, lam = _scan_inputs(seed=14)
+    jcfg, cfg = _cfgs(max_iters=200, adapt_rho=False, tol=1e-3, fused=kind != "scan",
+                      block_k=block_k)
+    assert solver_dispatch.select_solver(cfg, 24, 5).kind == kind
+    rho = np.linspace(0.8, 1.2, 5).astype(np.float32)
+    jstate = state = None
+    if warm:
+        pre = jax_solve_dantzig_full(jnp.asarray(sigma), jnp.asarray(b), jnp.asarray(lam),
+                                     jcfg._replace(tol=None, max_iters=40), rho=jnp.asarray(rho))
+        jstate = pre.state
+        state = interop.state_from_numpy(*(np.asarray(v) for v in jstate), device="cpu")
+    want = jax_solve_dantzig_full(jnp.asarray(sigma), jnp.asarray(b), jnp.asarray(lam), jcfg,
+                                  rho=jnp.asarray(rho), state=jstate, backend="cpu")
+    got = solver_dispatch.solve_dantzig_full(_t(sigma), _t(b), _t(lam), cfg, rho=_t(rho),
+                                             state=state)
+    np.testing.assert_array_equal(got.iters.numpy(), np.asarray(want.iters))
+    assert got.iters.numpy().max() < 200
+    _close(got.beta, want.beta)
+    np.testing.assert_array_equal(got.rho.numpy(), np.asarray(want.rho))
+    for g, w in zip(got.state, want.state):
+        _close(g, w)
+    # the narrow entry point routes tol and state through the full solve
+    beta, rho_out = solver_dispatch.solve_dantzig_with_rho(_t(sigma), _t(b), _t(lam), cfg,
+                                                           rho=_t(rho), state=state)
+    torch.testing.assert_close(beta, got.beta, rtol=0, atol=0)
+
+
+def test_solve_dantzig_full_vector_rhs_squeezes_like_reference():
+    from repro.core.solver_dispatch import solve_dantzig_full as jax_solve_dantzig_full
+
+    sigma, b, _ = _scan_inputs(seed=15)
+    jcfg, cfg = _cfgs(max_iters=150, adapt_rho=False, tol=1e-3, fused=True)
+    want = jax_solve_dantzig_full(jnp.asarray(sigma), jnp.asarray(b[:, 1]), 0.2, jcfg)
+    got = solver_dispatch.solve_dantzig_full(_t(sigma), _t(b[:, 1]), 0.2, cfg)
+    assert got.beta.shape == (24,) and got.iters.shape == () and got.rho.shape == ()
+    assert int(got.iters) == int(want.iters)
+    _close(got.beta, want.beta)
+    for g, w in zip(got.state, want.state):
+        assert g.shape == (24,)
+        _close(g, w)
