@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.dantzig_fused import AdmmState
-from repro_torch.kernels.ref import per_column
+from repro_torch.kernels.ref import gated_chunks, per_column, scaled_residual
 from repro_torch.kernels.spectral import SpectralFactor, spectral_factor
 
 
@@ -155,26 +155,11 @@ def solve_dantzig_scan(
             state = iterate(*state, i)
         iters = torch.full(batch, cfg.max_iters, dtype=torch.int32, device=b.device)
     else:
-        # chunks of check_every iterations, the last clamped so the cap
-        # is exactly max_iters; the balancing index is the global it + j
-        active = torch.ones((*batch, 1, 1), dtype=torch.bool, device=b.device)
-        iters = torch.zeros(batch, dtype=torch.int32, device=b.device)
-        it = 0
-        while it < cfg.max_iters and bool(active.any()):
-            n = min(cfg.check_every, cfg.max_iters - it)
-            for j in range(n):
-                new = iterate(*state, it + j)
-                dz, dw = new[0] - state[0], new[1] - state[1]
-                state = tuple(torch.where(active, v, old) for v, old in zip(new, state))
-            it += n
-            iters = torch.where(active[..., 0, 0], iters + n, iters)
-            z, w, u1, u2, rho = state
-            beta = solve_m(a @ (z + b - u1) + (w - u2))
-            ab = a @ beta
-            r_pri = torch.maximum((ab - z - b).abs().amax((-2, -1)),
-                                  (beta - w).abs().amax((-2, -1)))
-            s_dual = (rho * (a @ dz + dw).abs().amax(-2, keepdim=True)).amax((-2, -1))
-            active = active & (torch.maximum(r_pri, s_dual) > cfg.tol)[..., None, None]
+        # the balancing index is the global it + j
+        state, iters = gated_chunks(
+            lambda st, i: iterate(*st, i), state, batch, cfg.max_iters, cfg.check_every,
+            cfg.tol, lambda st, dz, dw: scaled_residual(a, q, qt, inv_eig, b, st[4], *st[:4],
+                                                        dz, dw))
 
     z, w, u1, u2, rho = state
     out = (w[..., 0] if squeeze else w,)

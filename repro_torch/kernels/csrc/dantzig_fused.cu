@@ -21,7 +21,9 @@
 // repo's 1e-5 pins).  At the paper's CLIME shape (m = 20, d = k = 200, 500
 // iterations) that is 6.4e11 FLOP, about 10 ms at the data sheet's
 // 67 TFLOP/s.  K3's residual check adds five products per chunk (one beta
-// solve and A dz), and its state I/O 8 m d k floats, 25.6 MB at that shape:
+// solve and A dz; the next chunk's first iteration computes the same beta and
+// A beta again, so the function itself needs only A dz there), and its state
+// I/O 8 m d k floats, 25.6 MB at that shape:
 // device-memory traffic stays negligible; what the design must manage
 // instead is on-chip capacity and the re-reads of A and Q.
 //
@@ -349,9 +351,7 @@ fused_admm_kernel(const float* __restrict__ at, const float* __restrict__ q,
   __syncthreads();
 
   int it = 0;
-  if constexpr (!kState) {
-    for (; it < iters; ++it) iteration<C, CG, false>(g, s, d, alpha, one_minus_alpha);
-  } else if (!has_tol) {
+  if (!kState || !has_tol) {
     for (; it < iters; ++it) iteration<C, CG, false>(g, s, d, alpha, one_minus_alpha);
   } else {
     // chunks of check_every iterations, the last one clamped so the cap is

@@ -77,17 +77,10 @@ def dantzig_fused_state_ref(a, q, inv_eig, b, lam, *, iters=500, rho=1.0, alpha=
     iterations from ``state``.  Otherwise the columns are cut into
     contiguous blocks of ``block_k`` (None: one block), the ragged tail
     padded with neutral columns (b = 0, lam = rho = 1, zero state), and
-    every block of every machine runs ``check_every``-iteration chunks,
-    the last clamped so the cap is exactly ``iters``, until its max
-    scaled residual
-
-        max(|A beta - z - b|, |beta - w|, rho_c |A dz + dw|_c)
-
-    over the block is at most ``tol`` (a NaN residual stops it too);
-    dz, dw are the chunk's last-iteration deltas.  A converged block
-    freezes while the others run on.  Returns ``(w, state, iters)`` with
-    iters (..., num_blocks) int32.  ``trace``, a list, receives every
-    chunk's (..., num_blocks) residual.
+    every block of every machine is gated on its own by
+    :func:`gated_chunks` on :func:`scaled_residual`.  Returns
+    ``(w, state, iters)`` with iters (..., num_blocks) int32.
+    ``trace``, a list, receives every chunk's (..., num_blocks) residual.
     """
     b = b.to(torch.float32)
     *batch, d, k = b.shape
@@ -111,37 +104,65 @@ def dantzig_fused_state_ref(a, q, inv_eig, b, lam, *, iters=500, rho=1.0, alpha=
     else:
         z, w, u1, u2 = (blocks(leaf.to(torch.float32)) for leaf in state)
 
-    counts = torch.zeros((*batch, nb), dtype=torch.int32, device=b.device)
     if tol is None:
         for _ in range(iters):
             z, w, u1, u2 = _admm_iteration(a4, q4, qt4, inv, bb, lam_b, inv_rho, alpha,
                                            z, w, u1, u2)
-        counts += iters
+        counts = torch.full((*batch, nb), iters, dtype=torch.int32, device=b.device)
     else:
-        active = torch.ones((*batch, nb, 1, 1), dtype=torch.bool, device=b.device)
-        it = 0
-        while it < iters and bool(active.any()):
-            n = min(check_every, iters - it)
-            for _ in range(n):
-                new = _admm_iteration(a4, q4, qt4, inv, bb, lam_b, inv_rho, alpha,
-                                      z, w, u1, u2)
-                dz, dw = new[0] - z, new[1] - w
-                z, w, u1, u2 = (torch.where(active, v, old)
-                                for v, old in zip(new, (z, w, u1, u2)))
-            it += n
-            counts = torch.where(active[..., 0, 0], counts + n, counts)
-            beta = q4 @ (inv * (qt4 @ (a4 @ (z + bb - u1) + (w - u2))))
-            ab = a4 @ beta
-            r_pri = torch.maximum((ab - z - bb).abs().amax((-2, -1)),
-                                  (beta - w).abs().amax((-2, -1)))
-            s_dual = (rho_b * (a4 @ dz + dw).abs().amax(-2, keepdim=True)).amax((-2, -1))
-            res = torch.maximum(r_pri, s_dual)
-            if trace is not None:
-                trace.append(res)
-            active = active & (res > tol)[..., None, None]
+        (z, w, u1, u2), counts = gated_chunks(
+            lambda st, _: _admm_iteration(a4, q4, qt4, inv, bb, lam_b, inv_rho, alpha, *st),
+            (z, w, u1, u2), (*batch, nb), iters, check_every, tol,
+            lambda st, dz, dw: scaled_residual(a4, q4, qt4, inv, bb, rho_b, *st, dz, dw),
+            trace)
 
     def unblock(x):
         return x.movedim(-3, -2).flatten(-2)[..., :k]
 
     z, w, u1, u2 = map(unblock, (z, w, u1, u2))
     return w, AdmmState(z, w, u1, u2), counts
+
+
+def scaled_residual(a, q, qt, inv, b, rho, z, w, u1, u2, dz, dw) -> torch.Tensor:
+    """The residual gate's max scaled residual over each problem's (d, k) block.
+
+    max(|A beta - z - b|, |beta - w|, rho_c |A dz + dw|_c), with beta
+    the next iteration's solve from (z, w, u1, u2) and dz, dw the last
+    iteration's deltas; reduced over the last two axes, keeping NaN.
+    """
+    beta = q @ (inv * (qt @ (a @ (z + b - u1) + (w - u2))))
+    ab = a @ beta
+    r_pri = torch.maximum((ab - z - b).abs().amax((-2, -1)), (beta - w).abs().amax((-2, -1)))
+    s_dual = (rho * (a @ dz + dw).abs().amax(-2, keepdim=True)).amax((-2, -1))
+    return torch.maximum(r_pri, s_dual)
+
+
+def gated_chunks(step, state: tuple, shape: tuple, iters: int, check_every: int, tol: float,
+                 residual, trace: list | None = None):
+    """The chunked residual gate of K3 and of the scan solver, per problem of ``shape``.
+
+    ``step(state, i)`` is iteration ``i`` (the global index) on a tuple
+    whose leaves lead with ``shape`` + (rows, cols), z and w first;
+    ``residual(state, dz, dw)`` gives a ``shape`` tensor.  Chunks of
+    ``check_every`` iterations, the last clamped so the cap is exactly
+    ``iters``, run until a problem's residual is at most ``tol`` (a NaN
+    residual stops it too); a stopped problem freezes while the others
+    run on.  Returns ``(state, counts)`` with int32 counts of ``shape``.
+    """
+    device = state[0].device
+    active = torch.ones((*shape, 1, 1), dtype=torch.bool, device=device)
+    counts = torch.zeros(shape, dtype=torch.int32, device=device)
+    it = 0
+    while it < iters and bool(active.any()):
+        n = min(check_every, iters - it)
+        for j in range(n):
+            new = step(state, it + j)
+            dz, dw = new[0] - state[0], new[1] - state[1]
+            state = tuple(torch.where(active, v, old) for v, old in zip(new, state))
+        it += n
+        counts = torch.where(active[..., 0, 0], counts + n, counts)
+        res = residual(state, dz, dw)
+        if trace is not None:
+            trace.append(res)
+        active = active & (res > tol)[..., None, None]
+    return state, counts
