@@ -6,11 +6,14 @@
 Phases, each of which exits non-zero on failure:
 
 1. build: compiles the CUDA C++ kernels (K1 gram; K2 and K3, the fused
-   ADMM without and with state) from ``repro_torch/kernels/csrc`` with
-   one nvcc per source, all at once, and JIT-compiles the Triton kernel
-   (K4 shrink);
+   ADMM without and with state; K4 shrink) from ``repro_torch/kernels/csrc``
+   with one nvcc per source, all at once;
 2. kernels: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes and at ragged ones, plus K2's bit-identity
+   at the main path's shapes and at ragged ones (K1 at d in {1, 3, 4,
+   200, 203, 256} and n in {1, 31, 250}, within 1e-5 of the largest entry
+   and exactly symmetric; K4 bit for bit, NaN positions included, on
+   +-0, +-inf, NaN and |x| == t, at c % 4 in {0, 1, 2, 3}, on a numel
+   that fills no whole block, on 1-D and misaligned input), plus K2's bit-identity
    across column blockings, and K3 at the lambda path's shapes (the
    CLIME block and the k = 8 direction fold): bit-identical to K2 and
    exactly resumable at ``tol=None``, and with ``tol`` set the same
@@ -31,8 +34,15 @@ Phases, each of which exits non-zero on failure:
    aggregate's statistics at every grid point held against the same
    sweep run with the plain versions;
 4. times: each kernel, its plain version and the one PyTorch call that
-   computes the same function (where there is one), with CUDA events,
-   and the cold and warm sweeps.
+   computes the same function (where there is one), with CUDA events
+   over back-to-back calls (``ms``), and the cold and warm sweeps; and
+   each kernel's split into device time (``device_ms``: calls captured
+   in one CUDA graph and replayed, cross-checked by torch.profiler) and
+   host time (``host_us``: the wrapper's wall time over unsynchronised
+   calls), K1 also with the L2 cache flushed before each call.
+
+``python3 chip_smoke.py --split`` builds and prints only the split, for
+comparing the kernels of two checkouts on one card.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
@@ -40,6 +50,7 @@ and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import subprocess
@@ -73,6 +84,7 @@ L_GRID = 8
 PATH_TOL, CHECK_EVERY = 1e-2, 10
 LOOSE_TOL = 0.1  # K3 phase only: a gate the cold CLIME blocks reach inside 200 iterations
 N_VAL = 2000
+STAGE_REPS = 5  # run (b)'s stages are host-bound: their wall times spread between runs
 
 
 FAILURES: list[str] = []
@@ -111,6 +123,111 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, n: int) -> float:
+    """Mean device milliseconds of one fn(): n calls captured in one CUDA graph, replayed.
+
+    The replay has no host launch path between the calls, so this is the
+    device's time per call (each kernel node still waits ~1 us for the
+    one before it).
+    """
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture: builds, loads, allocator
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def host_us(fn, n: int) -> float:
+    """Mean host microseconds of one fn() over n calls with no synchronisation between them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return us
+
+
+def cold_device_ms(fn, n: int) -> float:
+    """Mean device milliseconds of one fn() with the L2 cache flushed before each call.
+
+    CUDA events around each call; the 128 MB flush (2.5x the H100's
+    L2) gives the host time to enqueue the call before the device
+    reaches it.
+    """
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=DEVICE)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(n)]
+    fn()
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / n
+
+
+def profiled_ms(fn, kernel: str, n: int) -> float | None:
+    """Mean device ms of the kernels whose name holds ``kernel``, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key and e.device_time_total > 0]
+    count = sum(e.count for e in hits)
+    return sum(e.device_time_total for e in hits) / count / 1e3 if count else None
+
+
+def busy_share(fn) -> float:
+    """The share of fn()'s wall time (host clock, synchronised) the device spent in kernels,
+    from one run under torch.profiler (whose own overhead lengthens the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = sync_time(fn)
+    device_us = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return device_us / (1e6 * wall)
+
+
+def time_split(fn, n: int, n_host: int, kernel: str | None = None, cold: bool = False) -> dict:
+    """Host and device time of one call: device_ms over n graph-captured calls, host_us
+    over n_host unsynchronised ones; with ``cold`` also the L2-flushed device time,
+    with ``kernel`` the profiler's device time of the kernels of that name."""
+    out = {"device_ms": device_ms(fn, n), "host_us": host_us(fn, n_host)}
+    if cold:
+        out["cold_device_ms"] = cold_device_ms(fn, n)
+    if kernel:
+        out["profiler_ms"] = profiled_ms(fn, kernel, min(n, 20))
+    return out
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
 
 
 def state_kernel_work(counts: torch.Tensor, k: int, bk: int, max_iters: int) -> tuple[int, int]:
@@ -166,7 +283,7 @@ def plain_state_kernel():
         ops._dantzig_fused_state = saved
 
 
-def main() -> None:
+def main(split_only: bool = False) -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check runs on an NVIDIA card")
 
@@ -186,15 +303,15 @@ def main() -> None:
     from repro_torch.core.clime import solve_clime_columns
     from repro_torch.core.slda import centralized_slda, hard_threshold
     from repro_torch.core.solver_dispatch import solve_dantzig
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import _launch, build, ops, ref
     from repro_torch.kernels.dantzig_fused import (
         dantzig_fused_cuda,
         dantzig_fused_state_cuda,
         pick_block_k,
         resolve_block_k,
     )
+    from repro_torch.kernels import soft_threshold as k4
     from repro_torch.kernels.gram import gram_cuda
-    from repro_torch.kernels.soft_threshold import soft_threshold_triton
     from repro_torch.kernels.spectral import spectral_factor
     from repro_torch.quickstart import format_table, metrics, tuning
     from repro_torch.stats import synthetic
@@ -210,9 +327,10 @@ def main() -> None:
         for line in build.log_path(name).read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    _, triton_s = sync_time(lambda: soft_threshold_triton(torch.ones(8, device=dev), 0.5))
     print(f"[build] nvcc {json.dumps({k: round(v, 2) for k, v in seconds.items()})}  "
-          f"triton jit {triton_s:.2f} s  total {time.perf_counter() - t0:.2f} s")
+          f"total {time.perf_counter() - t0:.2f} s")
+    # K4's wrapper; a checkout from before K4 was CUDA C++ names its Triton one otherwise
+    shrink = getattr(k4, "soft_threshold_cuda", None) or k4.soft_threshold_triton
 
     # ---- main-path inputs (the paper's §5.1 design) -------------------------
     problem = synthetic.make_problem(d=D, n_signal=N_SIGNAL, rho=RHO, device=dev)
@@ -240,6 +358,23 @@ def main() -> None:
         check(err <= 1e-5 * scale, f"K1 {label}: err {err} > 1e-5 * {scale}")
         check(torch.equal(got, got.mT), f"K1 {label}: not exactly symmetric")
         errs.setdefault("gram", err)
+    # the edge shapes draw from their own generator: gen's stream stays the main path's
+    side = torch.Generator(device=dev).manual_seed(SEED + 1)
+    k1_cases = {f"d={d} n={n}": torch.randn(3, n, d, generator=side, device=dev)
+                for d in (1, 3, 4, 200, 203, 256) for n in (1, 31, 250)}
+    # a contiguous view one float past a 16-byte boundary takes the 4-byte copies
+    k1_cases["d=200 n=31 misaligned"] = torch.randn(
+        3 * 31 * 200 + 1, generator=side, device=dev)[1:].view(3, 31, 200)
+    worst = 0.0
+    for label, x in k1_cases.items():
+        mu = x.mean(1) + 0.1 * torch.randn(x.shape[0], x.shape[2], generator=side, device=dev)
+        got, want = gram_cuda(x, mu), ref.gram_ref(x, mu)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        worst = max(worst, err / scale)
+        check(err <= 1e-5 * scale, f"K1 {label}: err {err} > 1e-5 * {scale}")
+        check(torch.equal(got, got.mT), f"K1 {label}: not exactly symmetric")
+    print(f"[kernels] K1 gram at {len(k1_cases)} edge shapes (d in 1, 3, 4, 200, 203, 256 x "
+          f"n in 1, 31, 250, and misaligned): largest err / max |G| {worst:.3e}")
 
     stats = pipeline.suff_stats(xs, ys, use_kernel=False)
     factor = spectral_factor(stats.sigma)
@@ -248,14 +383,118 @@ def main() -> None:
     rho_cols = torch.ones(M, D, device=dev)
     x_shrink = factor.q @ eye  # a (m, d, d) block of the scan's shape
     t_cols = 0.05 + 0.1 * torch.rand(M, 1, D, generator=gen, device=dev)
+    clime_lam = torch.full((M, D), lam, device=dev)
+    lams = torch.tensor([lam * 2.0 ** ((l - L_GRID // 2) / (L_GRID // 2)) for l in range(L_GRID)],
+                        dtype=torch.float32, device=dev)
+    fold_b = stats.mu_d.unsqueeze(-1).expand(M, D, L_GRID).contiguous()
+    fold_lam = lams.expand(M, L_GRID).contiguous()
+
+    def k2_clime():
+        return dantzig_fused_cuda(stats.sigma, q, factor.inv_eig, eye, clime_lam, rho_cols,
+                                  iters=ITERS, alpha=1.7)
+
+    def k2_direction():
+        return dantzig_fused_cuda(stats.sigma, q, factor.inv_eig,
+                                  stats.mu_d.unsqueeze(-1).contiguous(),
+                                  clime_lam[:, :1].contiguous(), rho_cols[:, :1].contiguous(),
+                                  iters=ITERS, alpha=1.7)
+
+    # K3 on the cold lambda path's CLIME block and direction fold
+    def k3_clime():
+        return dantzig_fused_state_cuda(stats.sigma, q, factor.inv_eig, eye, clime_lam,
+                                        rho_cols, None, iters=ITERS, alpha=1.7, tol=PATH_TOL,
+                                        check_every=CHECK_EVERY)
+
+    def k3_fold():
+        return dantzig_fused_state_cuda(stats.sigma, q, factor.inv_eig, fold_b, fold_lam,
+                                        rho_cols[:, :L_GRID].contiguous(), None, iters=ITERS,
+                                        alpha=1.7, tol=PATH_TOL, check_every=CHECK_EVERY)
+
+    def kernel_splits() -> dict:
+        """Host and device time of every kernel, and of the PyTorch call beside K1 and K4,
+        at the main path's shapes: 100 graph-captured calls for K1 and K4 and 10 for the
+        ADMM solves, which last tens of milliseconds each."""
+        xc = xs - mu1.unsqueeze(1)
+        # run (b)'s two K4 stages, end to end: host-bound, so timed over repeats
+        cfg_b = DantzigConfig(max_iters=ITERS, use_kernel=True)
+        hs = pipeline.BinaryHead().stats(xs, ys)
+        fac = spectral_factor(hs.sigma)
+        stages = {"direction solve": lambda: solve_dantzig(fac, hs.rhs, lam, cfg_b),
+                  "CLIME solve": lambda: solve_clime_columns(fac, torch.arange(D, device=dev),
+                                                             lam, cfg_b)}
+        return {
+            **{f"run (b) {name}": {
+                "wall_ms": sorted(1e3 * sync_time(fn)[1] for _ in range(STAGE_REPS)),
+                "busy_share": busy_share(fn)} for name, fn in stages.items()},
+            "gram": time_split(lambda: gram_cuda(xs, mu1), 100, 1000, "gram_kernel", cold=True),
+            "gram library bmm": time_split(lambda: torch.bmm(xc.mT, xc), 100, 1000, cold=True),
+            "soft_threshold": time_split(lambda: shrink(x_shrink, t_cols), 100,
+                                         1000, "soft_threshold"),
+            "soft_threshold scalar t": time_split(lambda: shrink(x_shrink, 0.05),
+                                                  100, 1000, "soft_threshold"),
+            "soft_threshold library softshrink": time_split(
+                lambda: torch.nn.functional.softshrink(x_shrink, 0.05), 100, 1000),
+            "dantzig_fused": time_split(k2_clime, 10, 10, "fused_admm_kernel"),
+            "dantzig_fused k=1": time_split(k2_direction, 10, 10, "fused_admm_kernel"),
+            "dantzig_fused_state": time_split(k3_clime, 10, 10, "fused_admm_kernel"),
+            "dantzig_fused_state fold": time_split(k3_fold, 10, 10, "fused_admm_kernel"),
+        }
+
+    if split_only:
+        print(json.dumps({"split": kernel_splits()}))
+        print(smi_line())
+        return
     for label, tt in (("scalar t", 0.05), ("per-column t", t_cols)):
-        got, want = soft_threshold_triton(x_shrink, tt), ref.soft_threshold_ref(x_shrink, tt)
+        got, want = shrink(x_shrink, tt), ref.soft_threshold_ref(x_shrink, tt)
         print(f"[kernels] K4 shrink {label}: bit-identical {bool(torch.equal(got, want))}")
         check(torch.equal(got, want), f"K4 {label}: differs from the plain version")
+        errs["soft_threshold"] = max(errs.get("soft_threshold", 0.0),
+                                     float((got - want).abs().max()))
     col = x_shrink[..., :1].contiguous()
-    check(torch.equal(soft_threshold_triton(col, t_cols[..., :1]),
+    check(torch.equal(shrink(col, t_cols[..., :1]),
                       ref.soft_threshold_ref(col, t_cols[..., :1])), "K4 (m, d, 1) differs")
-    errs["soft_threshold"] = 0.0
+    # edge values, at scalar and per-column t: +-0, +-inf, NaN, |x| == t and its
+    # neighbours, on shapes with c % 4 in {0, 1, 2, 3}, a numel that fills no
+    # whole block, 1-D input and a misaligned view
+    k4_shapes = {"main (20, 200, 200)": (M, D, D), "c%4=1 (3, 7, 5)": (3, 7, 5),
+                 "c%4=2 (3, 9, 6)": (3, 9, 6), "c%4=3 (2, 11, 7)": (2, 11, 7),
+                 "ragged numel (3, 37, 20)": (3, 37, 20), "1-D (1001,)": (1001,),
+                 "1-D (1000,)": (1000,), "misaligned (4, 64, 64)": (4, 64, 64)}
+    edge = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1e-30, -1e-30,
+                         3e38, -3e38], device=dev)
+    k4_failed = 0
+    for label, shape in k4_shapes.items():
+        numel = torch.Size(shape).numel()
+        flat = torch.randn(numel + 1, generator=side, device=dev)
+        flat = flat[1:] if label.startswith("misaligned") else flat[:-1]
+        x = flat.view(shape)
+        c = shape[-1]
+        rows = (*shape[:-2], 1, c) if len(shape) >= 2 else (c,)
+        t_col = 0.05 + 0.25 * torch.rand(rows, generator=side, device=dev)
+        # |x| == t: the first two rows of every matrix hit their column's t, and
+        # +-0.25 hits the scalar t
+        if len(shape) >= 2:
+            x[..., 0, :] = t_col[..., 0, :]
+            x[..., 1, :] = -t_col[..., 0, :]
+        else:
+            x[:4] = t_col[:4] * torch.tensor([1.0, -1.0, 1.0, -1.0], device=dev)
+        pos = torch.randperm(numel, generator=side, device=dev)[:len(edge) + 2]
+        flat[pos] = torch.cat([edge, torch.tensor([0.25, -0.25], device=dev)])
+        for t_label, tt in (("scalar t", 0.25), ("per-column t", t_col)):
+            got, want = shrink(x, tt), ref.soft_threshold_ref(x, tt)
+            # with equal_nan, a NaN on one side only still fails
+            try:
+                torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+            except AssertionError as exc:
+                k4_failed += 1
+                check(False, f"K4 edge {label} {t_label}: {exc}")
+    # a per-column t that broadcasts from (1, c): the wrapper expands it
+    x = torch.randn(3, 9, 8, generator=side, device=dev)
+    t_row = 0.1 + torch.rand(1, 8, generator=side, device=dev)
+    check(torch.equal(shrink(x, t_row), ref.soft_threshold_ref(x, t_row)),
+          "K4 broadcast (1, c) t differs")
+    print(f"[kernels] K4 shrink edge values at {len(k4_shapes)} shapes x scalar and per-column "
+          f"t: {k4_failed} differ from the plain version (rtol 0, atol 0, NaN equal)")
 
     def k2(b, block_k=None, iters=CHECK_ITERS):
         k = b.shape[-1]
@@ -299,9 +538,6 @@ def main() -> None:
 
     # K3 at the lambda path's shapes: the CLIME block (k = 200) and the
     # direction solve folded over the 8-point grid (k = 8, lam per column)
-    lams = torch.tensor([lam * 2.0 ** ((l - L_GRID // 2) / (L_GRID // 2)) for l in range(L_GRID)],
-                        dtype=torch.float32, device=dev)
-    fold_b = stats.mu_d.unsqueeze(-1).expand(M, D, L_GRID).contiguous()
     shapes = {"CLIME k=200": (eye, torch.full((M, D), lam, device=dev)),
               "direction fold k=8": (fold_b, lams.expand(M, L_GRID).contiguous())}
     # the fold's pin as K2's: the plain version's own spread when the same
@@ -534,30 +770,35 @@ def main() -> None:
 
     # ---- 4. times -------------------------------------------------------------
     name_card = torch.cuda.get_device_name(0)
+    splits = kernel_splits()
     kernels = []
 
-    def row(name, route, source, replaces, ms, plain_ms, flops, nbytes, library_ms):
+    def row(name, route, source, replaces, ms, plain_ms, flops, nbytes, library=None,
+            library_ms=None, **extra):
+        """One kernel's line; ``library`` names the split of the PyTorch call beside it."""
         bound_ms, bound_by = bound(flops, nbytes)
+        sp = splits[name]
+        lib = {} if library is None else {"library_" + k: v for k, v in splits[library].items()}
+        # back to back, a call takes the longer of its host and device times:
+        # the device idles for the rest
         kernels.append(dict(name=name, route=route, source=source, replaces=replaces,
                             launches=launches[name], max_abs_err=errs[name], ms=ms,
                             kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=library_ms))
+                            bound_by=bound_by, library_ms=library_ms,
+                            idle_share=max(0.0, 1.0 - sp["device_ms"] / ms), **sp, **lib,
+                            **extra))
 
     xc = xs - mu1.unsqueeze(1)
     n = n1
     row("gram", "cuda", "repro_torch/kernels/csrc/gram.cu", "src/repro/kernels/gram.py:28",
         cuda_ms(lambda: gram_cuda(xs, mu1), 50), cuda_ms(lambda: ref.gram_ref(xs, mu1), 50),
-        M * (n * D * (D + 1) + n * D), 4 * (M * n * D + M * D + M * D * D),
-        cuda_ms(lambda: torch.bmm(xc.mT, xc), 50))  # library: centering excluded
+        M * (n * D * (D + 1) + n * D), 4 * (M * n * D + M * D + M * D * D), "gram library bmm",
+        library_ms=cuda_ms(lambda: torch.bmm(xc.mT, xc), 50))  # library: centering excluded
 
-    lam_cols = torch.full((M, D), lam, device=dev)
-    k2_ms = cuda_ms(lambda: dantzig_fused_cuda(stats.sigma, q, factor.inv_eig, eye,
-                                               lam_cols, rho_cols, iters=ITERS, alpha=1.7), 3)
+    k2_ms = cuda_ms(k2_clime, 3)
     k2_plain_ms = cuda_ms(lambda: ref.dantzig_fused_ref(
         stats.sigma, factor.q, factor.inv_eig, eye, lam, iters=ITERS, rho=1.0), 1)
-    k2_dir_ms = cuda_ms(lambda: dantzig_fused_cuda(
-        stats.sigma, q, factor.inv_eig, stats.mu_d.unsqueeze(-1).contiguous(),
-        lam_cols[:, :1].contiguous(), rho_cols[:, :1].contiguous(), iters=ITERS, alpha=1.7), 3)
+    k2_dir_ms = cuda_ms(k2_direction, 3)
     k2_dir_plain_ms = cuda_ms(lambda: ref.dantzig_fused_ref(
         stats.sigma, factor.q, factor.inv_eig, stats.mu_d.unsqueeze(-1), lam, iters=ITERS,
         rho=1.0), 1)
@@ -565,15 +806,10 @@ def main() -> None:
     row("dantzig_fused", "cuda", "repro_torch/kernels/csrc/dantzig_fused.cu",
         "src/repro/kernels/dantzig_fused.py:202", k2_ms, k2_plain_ms,
         ITERS * M * (8 * D * D * D + 20 * D * D),
-        4 * (2 * M * D * D + M * D + 2 * M * D * D + 2 * M * D), None)
+        4 * (2 * M * D * D + M * D + 2 * M * D * D + 2 * M * D),
+        direction_k1={"ms": k2_dir_ms, **splits["dantzig_fused k=1"]})
 
-    # K3 on the cold lambda path's CLIME block; its bound counts the
-    # iterations and residual checks this run's data needed
-    def k3_clime():
-        return dantzig_fused_state_cuda(stats.sigma, q, factor.inv_eig, eye, lam_cols,
-                                        rho_cols, None, iters=ITERS, alpha=1.7, tol=PATH_TOL,
-                                        check_every=CHECK_EVERY)
-
+    # K3's bound counts the iterations and residual checks this run's data needed
     def k3_clime_plain():
         return ref.dantzig_fused_state_ref(stats.sigma, factor.q, factor.inv_eig, eye, lam,
                                            iters=ITERS, rho=1.0, alpha=1.7,
@@ -583,20 +819,15 @@ def main() -> None:
     k3_counts = k3_clime().iters
     k3_ms = cuda_ms(k3_clime, 3)
     k3_plain_ms = cuda_ms(k3_clime_plain, 1)
-    fold_lam = lams.expand(M, L_GRID).contiguous()
-
-    def k3_fold():
-        return dantzig_fused_state_cuda(stats.sigma, q, factor.inv_eig, fold_b, fold_lam,
-                                        rho_cols[:, :L_GRID].contiguous(), None, iters=ITERS,
-                                        alpha=1.7, tol=PATH_TOL, check_every=CHECK_EVERY)
-
     fold_counts = k3_fold().iters
     fold_ms = cuda_ms(k3_fold, 3)
     flops, nbytes = state_kernel_work(k3_counts, D, resolve_block_k(D, D, None, state_io=True),
                                       ITERS)
-    row("dantzig_fused_state", "cuda", "repro_torch/kernels/csrc/dantzig_fused.cu",
-        "src/repro/kernels/dantzig_fused.py:222", k3_ms, k3_plain_ms, flops, nbytes, None)
     fold_bound, _ = bound(*state_kernel_work(fold_counts, L_GRID, L_GRID, ITERS))
+    row("dantzig_fused_state", "cuda", "repro_torch/kernels/csrc/dantzig_fused.cu",
+        "src/repro/kernels/dantzig_fused.py:222", k3_ms, k3_plain_ms, flops, nbytes,
+        direction_fold={"ms": fold_ms, "bound_ms": fold_bound,
+                        **splits["dantzig_fused_state fold"]})
     sweep_ms = {name: cuda_ms(lambda: sweep(**warm_kw), 3) for name, warm_kw in (
         ("cold", {}), ("warm", dict(rho_beta=cold.rho_beta, state_beta=cold.state_beta)))}
     print(f"[times] K3 CLIME (m={M}, d={D}, k={D}, tol={PATH_TOL}, max {ITERS} iters): "
@@ -606,13 +837,30 @@ def main() -> None:
           f"{sorted(set(fold_counts.flatten().tolist()))} (bound {fold_bound:.4f} ms)")
     print(f"[times] lambda-path sweeps by CUDA events, ms: {json.dumps(sweep_ms)}")
     numel = x_shrink.numel()
-    st_ms = cuda_ms(lambda: soft_threshold_triton(x_shrink, t_cols), 200)
-    st_scalar_ms = cuda_ms(lambda: soft_threshold_triton(x_shrink, 0.05), 200)
-    row("soft_threshold", "triton", "repro_torch/kernels/soft_threshold.py",
+    st_ms = cuda_ms(lambda: shrink(x_shrink, t_cols), 200)
+    st_scalar_ms = cuda_ms(lambda: shrink(x_shrink, 0.05), 200)
+    # ms, device_ms and host_us are the main path's per-column t; scalar_t is
+    # the like-for-like comparison with F.softshrink (library_*)
+    def k4_host_parts() -> dict:
+        """What K4's host time is made of: the output's allocation, and the C call with
+        and without its launch (at numel 0 it returns before launching)."""
+        out, raw = torch.empty_like(x_shrink), _launch.stream(x_shrink.device)
+
+        def c_call(size):
+            return k4._SHRINK(x_shrink.data_ptr(), None, out.data_ptr(), 0.05, size, D, D * D,
+                              raw)
+
+        return {"empty_like": host_us(lambda: torch.empty_like(x_shrink), 1000),
+                "c_call_no_launch": host_us(lambda: c_call(0), 1000),
+                "c_call_launch": host_us(lambda: c_call(numel), 1000)}
+
+    row("soft_threshold", "cuda", "repro_torch/kernels/csrc/soft_threshold.cu",
         "src/repro/kernels/soft_threshold.py:24", st_ms,
         cuda_ms(lambda: ref.soft_threshold_ref(x_shrink, t_cols), 200),
-        4 * numel, 4 * (2 * numel + M * D),
-        cuda_ms(lambda: torch.nn.functional.softshrink(x_shrink, 0.05), 200))
+        4 * numel, 4 * (2 * numel + M * D), "soft_threshold library softshrink",
+        library_ms=cuda_ms(lambda: torch.nn.functional.softshrink(x_shrink, 0.05), 200),
+        scalar_t={"ms": st_scalar_ms, "bound_ms": bound(4 * numel, 8 * numel)[0],
+                  **splits["soft_threshold scalar t"], "host_parts_us": k4_host_parts()})
     print(f"[times] K2 direction solve (m={M}, d={D}, k=1, {ITERS} iters): {k2_dir_ms:.3f} ms"
           f" (plain {k2_dir_plain_ms:.3f} ms);"
           f" K4 with a scalar t: {st_scalar_ms:.4f} ms (the library_ms column is"
@@ -631,13 +879,14 @@ def main() -> None:
             (beta_hat - theta.mT @ (hs.sigma @ beta_hat - hs.rhs)).mean(0)[:, 0], t))
         print(f"[times] distributed ({run}) by stage, ms: "
               f"{json.dumps({k: round(1e3 * v, 3) for k, v in stages.items()})}")
+    print(f"[times] distributed (b), {STAGE_REPS} runs of each K4 stage, host clock ms, and "
+          f"the device's busy share of one profiled run: "
+          f"{json.dumps({k: v for k, v in splits.items() if k.startswith('run (b)')})}")
     print(f"[result] {json.dumps({r: tables[r] for r in tables})}")
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi_line()
     print(json.dumps({"kernels": kernels}))
-    print(smi.stdout.strip().splitlines()[0])
+    print(card)
     if FAILURES:
         fail(f"{len(FAILURES)} check(s) failed: {FAILURES}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name_card,
@@ -645,4 +894,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--split", action="store_true",
+                        help="build, then print only each kernel's host and device time at "
+                             "the main path's shapes (no checks)")
+    main(split_only=parser.parse_args().split)

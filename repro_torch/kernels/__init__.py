@@ -5,7 +5,7 @@
   solve, machines and column blocks in one grid; K2 runs fixed
   iterations from zero, K3 resumes a warm state and can stop each
   column block at a residual tolerance.
-- ``soft_threshold`` (K4, Triton): the ADMM shrink step of the scan solver.
+- ``soft_threshold`` (K4, CUDA C++): the ADMM shrink step of the scan solver.
 - ``spectral``: the SpectralFactor every solver entry point accepts.
 
 Each kernel's plain version is in :mod:`repro_torch.kernels.ref`, and

@@ -36,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _launch, build
+from repro_torch.kernels import _launch
 
 # Dynamic shared memory one block may use on an H100 (232,448 bytes).
 SMEM_BYTES = 227 * 1024
@@ -109,20 +109,12 @@ def tile_width(bk: int) -> int:
     raise ValueError(f"block of {bk} columns is wider than the widest tile {TILE_WIDTHS[-1]}")
 
 
-def _lib():
-    fn = build.library("dantzig_fused").dantzig_fused_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _state_lib():
-    fn = build.library("dantzig_fused").dantzig_fused_state_launch
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+_K2 = _launch.CFunction("dantzig_fused", "dantzig_fused_launch",
+                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+                        + [ctypes.c_void_p])
+_K3 = _launch.CFunction("dantzig_fused", "dantzig_fused_state_launch",
+                        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+                        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _check_operands(a, q, inv_eig, b, lam, rho):
@@ -156,8 +148,8 @@ def dantzig_fused_cuda(a, q, inv_eig, b, lam, rho, *, iters: int, alpha: float,
     at = a.mT.contiguous()
     qt = q.mT.contiguous()
     out = torch.empty((m, d, k), dtype=torch.float32, device=dev)
-    code = _lib()(*(_launch.ptr(t) for t in (at, q, qt, inv_eig, b, lam, rho, out)),
-                  m, d, k, bk, width, iters, alpha, 1.0 - alpha, _launch.stream(dev))
+    code = _K2(*(t.data_ptr() for t in (at, q, qt, inv_eig, b, lam, rho, out)),
+               m, d, k, bk, width, iters, alpha, 1.0 - alpha, _launch.stream(dev))
     _launch.raise_on_error("dantzig_fused", code)
     return out
 
@@ -189,10 +181,10 @@ def dantzig_fused_state_cuda(a, q, inv_eig, b, lam, rho, state: AdmmState | None
     qt = q.mT.contiguous()
     w, z, u1, u2 = (torch.empty((m, d, k), dtype=torch.float32, device=dev) for _ in range(4))
     counts = torch.empty((m, -(-k // bk)), dtype=torch.int32, device=dev)
-    state_in = (ctypes.c_void_p(None),) * 4 if state is None else tuple(map(_launch.ptr, state))
-    code = _state_lib()(
-        *(_launch.ptr(t) for t in (at, q, qt, inv_eig, b, lam, rho)), *state_in,
-        *(_launch.ptr(t) for t in (w, z, u1, u2, counts)),
+    state_in = (None,) * 4 if state is None else tuple(leaf.data_ptr() for leaf in state)
+    code = _K3(
+        *(t.data_ptr() for t in (at, q, qt, inv_eig, b, lam, rho)), *state_in,
+        *(t.data_ptr() for t in (w, z, u1, u2, counts)),
         m, d, k, bk, width, iters, alpha, 1.0 - alpha,
         int(tol is not None), 0.0 if tol is None else tol, check_every, _launch.stream(dev))
     _launch.raise_on_error("dantzig_fused_state", code)

@@ -11,15 +11,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _launch, build
+from repro_torch.kernels import _launch
 
-
-def _lib():
-    lib = build.library("gram")
-    fn = lib.gram_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_GRAM = _launch.CFunction("gram", "gram_launch",
+                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def gram_cuda(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
@@ -29,12 +24,12 @@ def gram_cuda(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     m, n, d = x.shape
     if m < 1 or n < 1 or d < 1:
         raise ValueError(f"empty operand: x has shape {tuple(x.shape)}")
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"gram_cuda needs CUDA tensors, got {x.device}")
-    _launch.check_operand("x", x, (m, n, d), x.device)
-    _launch.check_operand("mu", mu, (m, d), x.device)
-    out = torch.empty((m, d, d), dtype=torch.float32, device=x.device)
-    code = _lib()(_launch.ptr(x), _launch.ptr(mu), _launch.ptr(out), m, n, d,
-                  _launch.stream(x.device))
+    dev = x.device
+    _launch.check_operand("x", x)
+    _launch.check_operand("mu", mu, (m, d), dev)
+    out = torch.empty((m, d, d), dtype=torch.float32, device=dev)
+    code = _GRAM(x.data_ptr(), mu.data_ptr(), out.data_ptr(), m, n, d, _launch.stream(dev))
     _launch.raise_on_error("gram", code)
     return out

@@ -23,7 +23,7 @@ from repro_torch.kernels.dantzig_fused import (
     resolve_block_k,
 )
 from repro_torch.kernels.gram import gram_cuda
-from repro_torch.kernels.soft_threshold import soft_threshold_triton
+from repro_torch.kernels.soft_threshold import soft_threshold_cuda
 from repro_torch.kernels.spectral import as_spectral_factor
 
 LAUNCHES = {"gram": 0, "dantzig_fused": 0, "dantzig_fused_state": 0, "soft_threshold": 0}
@@ -56,7 +56,7 @@ def soft_threshold(x: torch.Tensor, t) -> torch.Tensor:
     """Shrink sign(x) * max(|x| - t, 0); ``t`` scalar or per column, (..., 1, c)."""
     if not _on_card(x):
         return ref.soft_threshold_ref(x, t)
-    out = soft_threshold_triton(x.contiguous(), t)
+    out = soft_threshold_cuda(x.contiguous(), t)
     LAUNCHES["soft_threshold"] += 1
     return out
 

@@ -1,81 +1,56 @@
-"""K4, the ADMM shrink step as a Triton kernel (twin of ``repro.kernels.soft_threshold``).
+"""K4, the ADMM shrink step on Hopper (twin of ``repro.kernels.soft_threshold``).
 
 ``out = sign(x) * max(|x| - t, 0)`` elementwise: one read and one write
-per element, bound by device-memory bytes.  Triton's masked block loads
-express it completely, so this kernel, unlike K1 and K2, is Triton and
-not CUDA C++.  ``t`` is a Python scalar or a per-column tensor: the scan
-solver shrinks by ``1/rho`` with one rho per machine and column.
-
-``triton`` is imported on the first launch, not when this module is
-imported, so the module imports on machines without Triton.
+per element, bound by device-memory bytes, and at the scan solver's
+shapes shorter on the card than its launch from Python.  The CUDA C++
+source and its design notes are in ``csrc/soft_threshold.cu``; this
+module checks the operands and launches it through one C call, with no
+copy of ``t`` when it already is the kernel's per-column row.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import _launch
 
-BLOCK = 1024
-
-tl = None  # triton.language, bound by _kernel() on the first launch
-_KERNEL = None
-
-
-def _soft_threshold_body(x_ptr, t_ptr, out_ptr, numel, c, rc, t_scalar,
-                         PER_COLUMN: tl.constexpr, BLOCK: tl.constexpr):
-    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < numel
-    x = tl.load(x_ptr + offs, mask=mask, other=0.0)
-    if PER_COLUMN:
-        # t is (batch, c): element (b, i, j) of x reads t[b, j]
-        t = tl.load(t_ptr + (offs // rc) * c + offs % c, mask=mask, other=0.0)
-    else:
-        t = t_scalar
-    mag = tl.maximum(tl.abs(x) - t, 0.0)
-    sign = tl.where(x > 0, 1.0, tl.where(x < 0, -1.0, 0.0))
-    tl.store(out_ptr + offs, sign * mag, mask=mask)
+_SHRINK = _launch.CFunction("soft_threshold", "soft_threshold_launch",
+                            [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3
+                            + [ctypes.c_void_p])
 
 
-def _kernel():
-    global tl, _KERNEL
-    if _KERNEL is None:
-        import triton
-        import triton.language
+def soft_threshold_cuda(x: torch.Tensor, t) -> torch.Tensor:
+    """Launch K4 on a contiguous f32 CUDA tensor ``x`` of shape (..., r, c) or (c,).
 
-        tl = triton.language
-        _KERNEL = triton.jit(_soft_threshold_body)
-    return _KERNEL
-
-
-def soft_threshold_triton(x: torch.Tensor, t) -> torch.Tensor:
-    """Launch K4 on a CUDA tensor ``x`` of shape (..., r, c) or (c,).
-
-    ``t`` is a Python number, or a tensor that broadcasts to
-    ``x.shape[:-2] + (1, c)`` (one threshold per machine and column).
+    ``t`` is a Python number, or an f32 tensor on ``x``'s card that
+    broadcasts to ``x.shape[:-2] + (1, c)`` (one threshold per machine
+    and column).
     """
-    if x.device.type != "cuda":
-        raise ValueError(f"soft_threshold_triton needs a CUDA tensor, got {x.device}")
-    _launch.check_operand("x", x, tuple(x.shape), x.device)
-    c = x.shape[-1] if x.ndim else 1
-    rc = x.shape[-1] * x.shape[-2] if x.ndim >= 2 else c
+    if not x.is_cuda:
+        raise ValueError(f"soft_threshold_cuda needs a CUDA tensor, got {x.device}")
+    _launch.check_operand("x", x)
     numel = x.numel()
+    if numel >= 2**31:
+        raise ValueError(f"soft_threshold_cuda takes fewer than 2^31 elements, got {numel}")
     out = torch.empty_like(x)
     if numel == 0:
         return out
+    c = x.shape[-1] if x.ndim else 1
+    rc = c * x.shape[-2] if x.ndim >= 2 else c
     if isinstance(t, (int, float)):
-        per_column, t_tensor, t_scalar = False, x, float(t)
+        t_ptr, t_scalar = None, t
     else:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"t must be a number or a tensor, got {type(t).__name__}")
-        batch = tuple(x.shape[:-2])
-        rows = (*batch, 1, c) if x.ndim >= 2 else (c,)
         if t.dtype != torch.float32 or t.device != x.device:
             raise TypeError("t must be a float32 tensor on x's device")
-        t_tensor = t.expand(rows).contiguous()
-        per_column, t_scalar = True, 0.0
-    grid = (-(-numel // BLOCK),)
-    _kernel()[grid](x, t_tensor, out, numel, c, rc, t_scalar,
-                    PER_COLUMN=per_column, BLOCK=BLOCK)
+        rows = (*x.shape[:-2], 1, c) if x.ndim >= 2 else (c,)
+        if t.shape != rows or not t.is_contiguous():
+            t = t.expand(rows).contiguous()
+        t_ptr, t_scalar = t.data_ptr(), 0.0
+    code = _SHRINK(x.data_ptr(), t_ptr, out.data_ptr(), t_scalar, numel, c, rc,
+                   _launch.stream(x.device))
+    _launch.raise_on_error("soft_threshold", code)
     return out
-

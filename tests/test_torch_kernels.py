@@ -1,4 +1,4 @@
-"""The port's kernel modules (K1 gram, K2 fused ADMM, K4 shrink) against the JAX reference.
+"""The port's kernel modules (K1 gram, K2 and K3 fused ADMM, K4 shrink) against the JAX reference.
 
 Inputs are made once with numpy from a seed and handed to both
 packages.  The reference runs its Pallas kernels in interpret mode, as
@@ -6,6 +6,10 @@ its own kernel tests do; on the CPU the port's wrappers run their plain
 PyTorch versions (the kernels themselves run only on the card, where
 ``chip_smoke.py`` holds each against its plain version).
 """
+
+import ast
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +26,10 @@ from repro.stats.synthetic import ar1_covariance
 from repro_torch import interop
 from repro_torch.core.dantzig import DantzigConfig
 from repro_torch.core.solver_dispatch import select_solver
+from repro_torch.kernels import _launch, build, ops, ref
 from repro_torch.kernels import dantzig_fused as fused_model
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import gram as gram_module
+from repro_torch.kernels import soft_threshold as shrink_module
 
 
 def _t(a):
@@ -91,6 +97,84 @@ def test_soft_threshold_per_column_equals_ref():
     for i in range(3):
         want = np.asarray(jax_ref.soft_threshold_ref(jnp.asarray(x[i]), jnp.asarray(t[i])))
         np.testing.assert_array_equal(got[i], want)
+
+
+# +-0, +-inf, NaN, |x| == 0.25 (the scalar t) and numbers far below and above it
+_EDGE = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 0.25, -0.25, 1e-30, -1e-30, 3e38, -3e38],
+                 np.float32)
+
+
+@pytest.mark.parametrize("shape", [(16,), (4, 36), (40, 33), (3, 9, 8)])
+@pytest.mark.parametrize("per_column", [False, True], ids=["scalar-t", "per-column-t"])
+def test_soft_threshold_edge_values_match_reference(shape, per_column):
+    # NaN stays NaN (the plain version's clamp keeps it), +-inf shrink to
+    # +-inf, and |x| == t gives zero; held against the reference's Pallas
+    # kernel in interpret mode (scalar t, up to rank 2) and its plain jnp
+    # version, NaN positions included
+    rng = np.random.default_rng(sum(shape))
+    x = rng.standard_normal(shape).astype(np.float32)
+    c = shape[-1]
+    if per_column:
+        t = rng.uniform(0.05, 0.3, shape[:-2] + (1, c) if len(shape) >= 2 else (c,))
+        t = t.astype(np.float32)
+        if len(shape) >= 2:  # the first two rows of every matrix hit their column's t
+            x[..., 0, :], x[..., 1, :] = t[..., 0, :], -t[..., 0, :]
+        else:
+            x[:4] = t[:4] * np.array([1, -1, 1, -1], np.float32)
+    else:
+        t = 0.25
+    flat = x.reshape(-1)
+    flat[rng.permutation(flat.size)[:_EDGE.size]] = _EDGE
+    got = ops.soft_threshold(_t(x), _t(t) if per_column else t).numpy()
+    want = np.asarray(jax_ref.soft_threshold_ref(jnp.asarray(x), jnp.asarray(t)))
+    np.testing.assert_array_equal(got, want)
+    if not per_column and len(shape) <= 2:
+        pallas = np.asarray(soft_threshold_pallas(jnp.asarray(x), t, block_r=8, block_c=16,
+                                                  interpret=True))
+        np.testing.assert_array_equal(got, pallas)
+    assert np.isnan(got).sum() == 1 and np.isnan(got.reshape(-1)[np.isnan(flat)]).all()
+    assert np.isinf(got).sum() == 2
+
+
+@pytest.mark.parametrize("launch", [
+    lambda: gram_module.gram_cuda(torch.ones(2, 3, 4), torch.ones(2, 4)),
+    lambda: shrink_module.soft_threshold_cuda(torch.ones(3, 4), 0.1),
+    lambda: shrink_module.soft_threshold_cuda(torch.ones(2, 3, 4), torch.ones(2, 1, 4)),
+], ids=["gram", "soft_threshold", "soft_threshold-per-column"])
+def test_cuda_launchers_raise_on_cpu_tensors(launch):
+    # the kernels' own wrappers never fall back: only ops picks the plain version
+    with pytest.raises(ValueError, match="CUDA"):
+        launch()
+
+
+_LAUNCHERS = [fn for mod in (gram_module, shrink_module, fused_model)
+              for fn in vars(mod).values() if isinstance(fn, _launch.CFunction)]
+
+
+@pytest.mark.parametrize("fn", _LAUNCHERS, ids=lambda fn: fn.symbol)
+def test_launcher_binds_a_symbol_its_source_defines(fn):
+    # a text check of the C sources, so a misspelt symbol or a lost
+    # argument is caught before the card builds them
+    assert fn.source in build.SOURCES
+    text = (build.CSRC / f"{fn.source}.cu").read_text()
+    found = re.search(rf'extern "C" int {fn.symbol}\(([^)]*)\)', text)
+    assert found, f"csrc/{fn.source}.cu defines no extern \"C\" {fn.symbol}"
+    assert len(found.group(1).split(",")) == len(fn.argtypes)
+
+
+def test_every_kernel_source_is_built_and_k4_is_cuda():
+    assert {"gram", "dantzig_fused", "soft_threshold"} <= set(build.SOURCES)
+    assert {fn.source for fn in _LAUNCHERS} == set(build.SOURCES)
+    assert all((build.CSRC / f"{name}.cu").exists() for name in build.SOURCES)
+
+
+def test_port_imports_no_triton():
+    port = Path(build.__file__).resolve().parents[1]
+    for path in sorted(port.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            assert not any(n.split(".")[0] == "triton" for n in names), path
 
 
 # --- K2: fused ADMM ----------------------------------------------------------
