@@ -11,11 +11,12 @@ Phases, each of which exits non-zero on failure:
 2. kernels: each kernel against its plain PyTorch version on the card,
    at the main path's shapes and at ragged ones (K1 at d in {1, 3, 4,
    200, 203, 256} and n in {1, 31, 250}, within 1e-5 of the largest entry
-   and exactly symmetric; K4 bit for bit, NaN positions included, on
-   +-0, +-inf, NaN and |x| == t, at c % 4 in {0, 1, 2, 3}, on a numel
-   that fills no whole block, on 1-D and misaligned input), plus K2's bit-identity
-   across column blockings, and K3 at the lambda path's shapes (the
-   CLIME block and the k = 8 direction fold): bit-identical to K2 and
+   and exactly symmetric; K4 bit for bit, NaN positions and the sign of
+   zero included, on +-0, +-inf, NaN and |x| == t, at c % 4 in {0, 1, 2,
+   3}, on a numel that fills no whole block, on 1-D and misaligned
+   input), plus K2's bit-identity across column blockings, and K3 at
+   the lambda path's shapes (the CLIME block and the k = 8 direction
+   fold): bit-identical to K2 and
    exactly resumable at ``tol=None``, and with ``tol`` set the same
    per-block iteration counts as its plain version (at most one block
    a chunk apart, its w then held against the plain version run for
@@ -41,16 +42,12 @@ Phases, each of which exits non-zero on failure:
    host time (``host_us``: the wrapper's wall time over unsynchronised
    calls), K1 also with the L2 cache flushed before each call.
 
-``python3 chip_smoke.py --split`` builds and prints only the split, for
-comparing the kernels of two checkouts on one card.
-
 The last lines are the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
-import argparse
 import contextlib
 import json
 import subprocess
@@ -253,6 +250,14 @@ def state_kernel_work(counts: torch.Tensor, k: int, bk: int, max_iters: int) -> 
     return flops, nbytes
 
 
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """True where got is want bit for bit, the sign of zero included, and NaN where want is
+    NaN (a NaN's payload aside); ``torch.equal`` and ``assert_close`` take -0 for +0."""
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]))
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """The least milliseconds the card could take, and what bounds it."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
@@ -283,7 +288,7 @@ def plain_state_kernel():
         ops._dantzig_fused_state = saved
 
 
-def main(split_only: bool = False) -> None:
+def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check runs on an NVIDIA card")
 
@@ -310,8 +315,8 @@ def main(split_only: bool = False) -> None:
         pick_block_k,
         resolve_block_k,
     )
-    from repro_torch.kernels import soft_threshold as k4
     from repro_torch.kernels.gram import gram_cuda
+    from repro_torch.kernels.soft_threshold import _SHRINK, soft_threshold_cuda
     from repro_torch.kernels.spectral import spectral_factor
     from repro_torch.quickstart import format_table, metrics, tuning
     from repro_torch.stats import synthetic
@@ -329,8 +334,6 @@ def main(split_only: bool = False) -> None:
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"[build] nvcc {json.dumps({k: round(v, 2) for k, v in seconds.items()})}  "
           f"total {time.perf_counter() - t0:.2f} s")
-    # K4's wrapper; a checkout from before K4 was CUDA C++ names its Triton one otherwise
-    shrink = getattr(k4, "soft_threshold_cuda", None) or k4.soft_threshold_triton
 
     # ---- main-path inputs (the paper's §5.1 design) -------------------------
     problem = synthetic.make_problem(d=D, n_signal=N_SIGNAL, rho=RHO, device=dev)
@@ -410,49 +413,15 @@ def main(split_only: bool = False) -> None:
                                         rho_cols[:, :L_GRID].contiguous(), None, iters=ITERS,
                                         alpha=1.7, tol=PATH_TOL, check_every=CHECK_EVERY)
 
-    def kernel_splits() -> dict:
-        """Host and device time of every kernel, and of the PyTorch call beside K1 and K4,
-        at the main path's shapes: 100 graph-captured calls for K1 and K4 and 10 for the
-        ADMM solves, which last tens of milliseconds each."""
-        xc = xs - mu1.unsqueeze(1)
-        # run (b)'s two K4 stages, end to end: host-bound, so timed over repeats
-        cfg_b = DantzigConfig(max_iters=ITERS, use_kernel=True)
-        hs = pipeline.BinaryHead().stats(xs, ys)
-        fac = spectral_factor(hs.sigma)
-        stages = {"direction solve": lambda: solve_dantzig(fac, hs.rhs, lam, cfg_b),
-                  "CLIME solve": lambda: solve_clime_columns(fac, torch.arange(D, device=dev),
-                                                             lam, cfg_b)}
-        return {
-            **{f"run (b) {name}": {
-                "wall_ms": sorted(1e3 * sync_time(fn)[1] for _ in range(STAGE_REPS)),
-                "busy_share": busy_share(fn)} for name, fn in stages.items()},
-            "gram": time_split(lambda: gram_cuda(xs, mu1), 100, 1000, "gram_kernel", cold=True),
-            "gram library bmm": time_split(lambda: torch.bmm(xc.mT, xc), 100, 1000, cold=True),
-            "soft_threshold": time_split(lambda: shrink(x_shrink, t_cols), 100,
-                                         1000, "soft_threshold"),
-            "soft_threshold scalar t": time_split(lambda: shrink(x_shrink, 0.05),
-                                                  100, 1000, "soft_threshold"),
-            "soft_threshold library softshrink": time_split(
-                lambda: torch.nn.functional.softshrink(x_shrink, 0.05), 100, 1000),
-            "dantzig_fused": time_split(k2_clime, 10, 10, "fused_admm_kernel"),
-            "dantzig_fused k=1": time_split(k2_direction, 10, 10, "fused_admm_kernel"),
-            "dantzig_fused_state": time_split(k3_clime, 10, 10, "fused_admm_kernel"),
-            "dantzig_fused_state fold": time_split(k3_fold, 10, 10, "fused_admm_kernel"),
-        }
-
-    if split_only:
-        print(json.dumps({"split": kernel_splits()}))
-        print(smi_line())
-        return
     for label, tt in (("scalar t", 0.05), ("per-column t", t_cols)):
-        got, want = shrink(x_shrink, tt), ref.soft_threshold_ref(x_shrink, tt)
-        print(f"[kernels] K4 shrink {label}: bit-identical {bool(torch.equal(got, want))}")
-        check(torch.equal(got, want), f"K4 {label}: differs from the plain version")
+        got, want = soft_threshold_cuda(x_shrink, tt), ref.soft_threshold_ref(x_shrink, tt)
+        print(f"[kernels] K4 shrink {label}: bit-identical {same_bits(got, want)}")
+        check(same_bits(got, want), f"K4 {label}: differs from the plain version")
         errs["soft_threshold"] = max(errs.get("soft_threshold", 0.0),
                                      float((got - want).abs().max()))
     col = x_shrink[..., :1].contiguous()
-    check(torch.equal(shrink(col, t_cols[..., :1]),
-                      ref.soft_threshold_ref(col, t_cols[..., :1])), "K4 (m, d, 1) differs")
+    check(same_bits(soft_threshold_cuda(col, t_cols[..., :1]),
+                    ref.soft_threshold_ref(col, t_cols[..., :1])), "K4 (m, d, 1) differs")
     # edge values, at scalar and per-column t: +-0, +-inf, NaN, |x| == t and its
     # neighbours, on shapes with c % 4 in {0, 1, 2, 3}, a numel that fills no
     # whole block, 1-D input and a misaligned view
@@ -481,20 +450,24 @@ def main(split_only: bool = False) -> None:
         pos = torch.randperm(numel, generator=side, device=dev)[:len(edge) + 2]
         flat[pos] = torch.cat([edge, torch.tensor([0.25, -0.25], device=dev)])
         for t_label, tt in (("scalar t", 0.25), ("per-column t", t_col)):
-            got, want = shrink(x, tt), ref.soft_threshold_ref(x, tt)
-            # with equal_nan, a NaN on one side only still fails
+            got, want = soft_threshold_cuda(x, tt), ref.soft_threshold_ref(x, tt)
+            # with equal_nan, a NaN on one side only still fails; same_bits also
+            # holds the sign of every zero
             try:
                 torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+                if not same_bits(got, want):
+                    raise AssertionError("a zero's sign differs")
             except AssertionError as exc:
                 k4_failed += 1
                 check(False, f"K4 edge {label} {t_label}: {exc}")
     # a per-column t that broadcasts from (1, c): the wrapper expands it
     x = torch.randn(3, 9, 8, generator=side, device=dev)
     t_row = 0.1 + torch.rand(1, 8, generator=side, device=dev)
-    check(torch.equal(shrink(x, t_row), ref.soft_threshold_ref(x, t_row)),
+    check(same_bits(soft_threshold_cuda(x, t_row), ref.soft_threshold_ref(x, t_row)),
           "K4 broadcast (1, c) t differs")
     print(f"[kernels] K4 shrink edge values at {len(k4_shapes)} shapes x scalar and per-column "
-          f"t: {k4_failed} differ from the plain version (rtol 0, atol 0, NaN equal)")
+          f"t: {k4_failed} differ from the plain version (rtol 0, atol 0, NaN equal, the "
+          f"sign of zero held)")
 
     def k2(b, block_k=None, iters=CHECK_ITERS):
         k = b.shape[-1]
@@ -770,6 +743,37 @@ def main(split_only: bool = False) -> None:
 
     # ---- 4. times -------------------------------------------------------------
     name_card = torch.cuda.get_device_name(0)
+    xc = xs - mu1.unsqueeze(1)  # bmm's input: the centering is not in the library call
+
+    def kernel_splits() -> dict:
+        """Host and device time of every kernel, and of the PyTorch call beside K1 and K4,
+        at the main path's shapes: 100 graph-captured calls for K1 and K4 and 10 for the
+        ADMM solves, which last tens of milliseconds each."""
+        # run (b)'s two K4 stages, end to end: host-bound, so timed over repeats
+        cfg_b = DantzigConfig(max_iters=ITERS, use_kernel=True)
+        hs = pipeline.BinaryHead().stats(xs, ys)
+        fac = spectral_factor(hs.sigma)
+        stages = {"direction solve": lambda: solve_dantzig(fac, hs.rhs, lam, cfg_b),
+                  "CLIME solve": lambda: solve_clime_columns(fac, torch.arange(D, device=dev),
+                                                             lam, cfg_b)}
+        return {
+            **{f"run (b) {name}": {
+                "wall_ms": sorted(1e3 * sync_time(fn)[1] for _ in range(STAGE_REPS)),
+                "busy_share": busy_share(fn)} for name, fn in stages.items()},
+            "gram": time_split(lambda: gram_cuda(xs, mu1), 100, 1000, "gram_kernel", cold=True),
+            "gram library bmm": time_split(lambda: torch.bmm(xc.mT, xc), 100, 1000, cold=True),
+            "soft_threshold": time_split(lambda: soft_threshold_cuda(x_shrink, t_cols), 100,
+                                         1000, "soft_threshold"),
+            "soft_threshold scalar t": time_split(lambda: soft_threshold_cuda(x_shrink, 0.05),
+                                                  100, 1000, "soft_threshold"),
+            "soft_threshold library softshrink": time_split(
+                lambda: torch.nn.functional.softshrink(x_shrink, 0.05), 100, 1000),
+            "dantzig_fused": time_split(k2_clime, 10, 10, "fused_admm_kernel"),
+            "dantzig_fused k=1": time_split(k2_direction, 10, 10, "fused_admm_kernel"),
+            "dantzig_fused_state": time_split(k3_clime, 10, 10, "fused_admm_kernel"),
+            "dantzig_fused_state fold": time_split(k3_fold, 10, 10, "fused_admm_kernel"),
+        }
+
     splits = kernel_splits()
     kernels = []
 
@@ -788,7 +792,6 @@ def main(split_only: bool = False) -> None:
                             idle_share=max(0.0, 1.0 - sp["device_ms"] / ms), **sp, **lib,
                             **extra))
 
-    xc = xs - mu1.unsqueeze(1)
     n = n1
     row("gram", "cuda", "repro_torch/kernels/csrc/gram.cu", "src/repro/kernels/gram.py:28",
         cuda_ms(lambda: gram_cuda(xs, mu1), 50), cuda_ms(lambda: ref.gram_ref(xs, mu1), 50),
@@ -837,8 +840,8 @@ def main(split_only: bool = False) -> None:
           f"{sorted(set(fold_counts.flatten().tolist()))} (bound {fold_bound:.4f} ms)")
     print(f"[times] lambda-path sweeps by CUDA events, ms: {json.dumps(sweep_ms)}")
     numel = x_shrink.numel()
-    st_ms = cuda_ms(lambda: shrink(x_shrink, t_cols), 200)
-    st_scalar_ms = cuda_ms(lambda: shrink(x_shrink, 0.05), 200)
+    st_ms = cuda_ms(lambda: soft_threshold_cuda(x_shrink, t_cols), 200)
+    st_scalar_ms = cuda_ms(lambda: soft_threshold_cuda(x_shrink, 0.05), 200)
     # ms, device_ms and host_us are the main path's per-column t; scalar_t is
     # the like-for-like comparison with F.softshrink (library_*)
     def k4_host_parts() -> dict:
@@ -847,7 +850,7 @@ def main(split_only: bool = False) -> None:
         out, raw = torch.empty_like(x_shrink), _launch.stream(x_shrink.device)
 
         def c_call(size):
-            return k4._SHRINK(x_shrink.data_ptr(), None, out.data_ptr(), 0.05, size, D, D * D,
+            return _SHRINK(x_shrink.data_ptr(), None, out.data_ptr(), 0.05, size, D, D * D,
                               raw)
 
         return {"empty_like": host_us(lambda: torch.empty_like(x_shrink), 1000),
@@ -894,8 +897,4 @@ def main(split_only: bool = False) -> None:
 
 
 if __name__ == "__main__":
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--split", action="store_true",
-                        help="build, then print only each kernel's host and device time at "
-                             "the main path's shapes (no checks)")
-    main(split_only=parser.parse_args().split)
+    main()
