@@ -20,7 +20,17 @@ Phases, each of which exits non-zero on failure:
    exactly resumable at ``tol=None``, and with ``tol`` set the same
    per-block iteration counts as its plain version (at most one block
    a chunk apart, its w then held against the plain version run for
-   the kernel's count);
+   the kernel's count); then, for the four K2/K3 calls of the main path,
+   the template the cluster model picks (cluster size, micro-tile, shared
+   memory per block, the card's cudaOccupancyMaxActiveClusters) and the
+   SHA-256 of the outputs, equal to the digests recorded from the first
+   port's kernel and the same at every cluster size that fits and on the
+   streamed template, and K2 and K3 at edge
+   shapes (d not a multiple of the cluster size, k = 1, a ragged tail
+   block, a shape sent to the streamed template): within the K2 pin of the
+   plain version, bit-identical across blockings and templates, K3 equal
+   to K2 at ``tol=None`` and across a resume, and with a gate that stops
+   some blocks early the plain version's per-block counts;
 3. main path: Algorithm 1 at the paper's §5.1 size (d = 200, AR(0.8),
    10 signal coordinates, N = 10,000 over m = 20 machines, 500 ADMM
    iterations) through the entry points a user calls, twice --
@@ -40,7 +50,9 @@ Phases, each of which exits non-zero on failure:
    each kernel's split into device time (``device_ms``: calls captured
    in one CUDA graph and replayed, cross-checked by torch.profiler) and
    host time (``host_us``: the wrapper's wall time over unsynchronised
-   calls), K1 also with the L2 cache flushed before each call.
+   calls), K1 also with the L2 cache flushed before each call; and the
+   four K2/K3 calls at every cluster size that fits and on the streamed
+   template, in turns.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
@@ -264,6 +276,154 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def digest(out) -> str:
+    """SHA-256 of the raw bytes of a K2 output (w) or a K3 result (w, z, u1, u2, counts)."""
+    import hashlib
+
+    leaves = (out,) if isinstance(out, torch.Tensor) else (out.beta, *out.state[:1],
+                                                           *out.state[2:], out.iters)
+    h = hashlib.sha256()
+    for t in leaves:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# (label, d, k, m, iterations, K3 resume split) of the cluster template's edge
+# shapes: d not a multiple of the cluster size, k = 1, a ragged tail block
+# (k = 45 in blocks of 23 and 22), and one shape the model sends to the
+# streamed template (its slices do not fit a block at 16 blocks a cluster)
+EDGE_SHAPES = [("d=37 k=8", 37, 8, 3, 200, 120),
+               ("d=203 k=1", 203, 1, 2, 200, 120),
+               ("d=203 k=45 ragged tail", 203, 45, 2, 200, 120),
+               ("d=512 k=40 streamed", 512, 40, 2, 50, 30)]
+# SHA-256 of the four main calls' outputs from the first port's kernel on this
+# script's inputs (NVIDIA H100 80GB HBM3): both templates are held to them bit
+# for bit
+RECORDED_DIGESTS = {
+    "K2 CLIME": "c0fa6d7deaefa7297d80390389f6ca4b8a0a67da8dcc73a738f82e1ff69b3d86",
+    "K2 k=1": "3cd52d77f976b3d6fa4d8e101a2d46b80df972bded1706db655fe8072395d2f5",
+    "K3 CLIME": "e4055fff5c5a4197d4d8b2e6db748596bc77e56a78eb39cac25d47f31732e9b5",
+    "K3 fold": "6cd3fcb2f015fa2ca3e327447966edbfecbc0803a4e2848316f4c67cdaa41c42"}
+
+
+def launch_shape(m: int, d: int, k: int, state_io: bool) -> dict:
+    """The template the cluster model picks for a launch shape and what the card reports
+    for it: cluster size (0: streamed), micro-tile, shared memory per block, registers,
+    spills and cudaOccupancyMaxActiveClusters."""
+    from repro_torch.kernels.dantzig_fused import (
+        cluster_info,
+        cluster_smem_bytes,
+        cluster_tile,
+        pick_cluster_size,
+        resolve_block_k,
+        tile_width,
+    )
+
+    bk = resolve_block_k(d, k, None, state_io=state_io)
+    width = tile_width(bk)
+    cs = pick_cluster_size(d, width, state_io)
+    out = {"block_k": bk, "width": width, "cluster": cs}
+    if cs:
+        info, tile = cluster_info(d, width, cs, state_io), cluster_tile(d, width, cs)
+        check(info.smem_bytes == cluster_smem_bytes(d, width, cs, state_io),
+              f"d={d} W={width} cluster {cs}: the card's shared memory per block "
+              f"{info.smem_bytes} is not the model's {cluster_smem_bytes(d, width, cs, state_io)}")
+        check(info.tile == {"row": 1, "block": 2}[tile],
+              f"d={d} W={width} cluster {cs}: the card's micro-tile {info.tile} is not the "
+              f"model's {tile}")
+        check(info.max_active_clusters > 0,
+              f"d={d} W={width} cluster {cs}: no cluster fits the card")
+        out.update(tile=tile, smem_bytes=info.smem_bytes, registers=info.registers,
+                   spilled_bytes=info.local_bytes,
+                   max_active_clusters=info.max_active_clusters)
+    return out
+
+
+def edge_shape_checks(label, d, k, m, iters, split, gen) -> None:
+    """K2 and K3 at one edge shape against their plain versions, across blockings and
+    templates, at tol=None, across a resume, and with a gate that stops some blocks
+    early and not others."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dantzig_fused import (
+        dantzig_fused_cuda,
+        dantzig_fused_state_cuda,
+        resolve_block_k,
+    )
+    from repro_torch.kernels.spectral import spectral_factor
+
+    dev = torch.device(DEVICE)
+    x = torch.randn(m, 2 * d, d, generator=gen, device=dev)
+    fac = spectral_factor(x.mT @ x / (2 * d))
+    a, q, inv = fac.sigma.contiguous(), fac.q.contiguous(), fac.inv_eig.contiguous()
+    b = torch.randn(m, d, k, generator=gen, device=dev)
+    lam = 0.02 + 0.05 * torch.rand(m, k, generator=gen, device=dev)
+    rho = 0.5 + torch.rand(m, k, generator=gen, device=dev)
+    shape = launch_shape(m, d, k, True)
+    bk = shape["block_k"]
+
+    def k2(cols=slice(None), **kw):
+        return dantzig_fused_cuda(a, q, inv, b[..., cols].contiguous(), lam[:, cols].contiguous(),
+                                  rho[:, cols].contiguous(), iters=iters, alpha=1.7, **kw)
+
+    def k3(state=None, n=iters, tol=None):
+        return dantzig_fused_state_cuda(a, q, inv, b, lam, rho, state, iters=n, alpha=1.7,
+                                        tol=tol, check_every=CHECK_EVERY)
+
+    def k3_plain(state=None, n=iters, tol=None, trace=None):
+        return ref.dantzig_fused_state_ref(fac.sigma, fac.q, fac.inv_eig, b, lam, iters=n,
+                                           rho=rho, alpha=1.7, block_k=bk, tol=tol,
+                                           check_every=CHECK_EVERY, state=state, trace=trace)
+
+    got = k2()
+    want = ref.dantzig_fused_ref(fac.sigma, fac.q, fac.inv_eig, b, lam, iters=iters, rho=rho,
+                                 alpha=1.7)
+    # the plain version's own spread: the same columns inside a wider product
+    extra = torch.eye(d, device=dev)[:, :8].expand(m, d, 8)
+    wide = ref.dantzig_fused_ref(fac.sigma, fac.q, fac.inv_eig, torch.cat([b, extra], -1),
+                                 torch.cat([lam, lam[:, :1].expand(m, 8)], -1), iters=iters,
+                                 rho=torch.cat([rho, rho[:, :1].expand(m, 8)], -1),
+                                 alpha=1.7)[..., :k]
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    pin = max(1e-5 * max(1.0, scale), 2 * float((wide - want).abs().max()))
+    other = max(1, bk // 2)
+    same = {f"block_k={other}": torch.equal(k2(block_k=other), got),
+            "column 0 alone": torch.equal(k2(cols=slice(0, 1)), got[..., :1])}
+    if shape["cluster"]:
+        same["streamed template"] = torch.equal(k2(cluster=0), got)
+    fixed = k3()
+    resumed = k3(state=k3(n=split).state, n=iters - split)
+    same["K3 at tol=None"] = torch.equal(fixed.beta, got)
+    same[f"K3 resumed {split} + {iters - split}"] = all(
+        torch.equal(u, v) for u, v in zip(resumed.state, fixed.state))
+    # a gate at the median of the blocks' least residuals over every check
+    # before the cap: a block stops at its first check at or below the
+    # gate, so the blocks at or below the median stop early and the others
+    # run to the cap
+    trace = []
+    k3_plain(n=iters - CHECK_EVERY, tol=0.0, trace=trace)
+    tol = float(torch.stack(trace).amin(0).flatten().median())
+    gated = k3(tol=tol)
+    want_w, _, want_n = k3_plain(tol=tol)
+    diff = gated.iters - want_n
+    for mach, blk in diff.nonzero().tolist():
+        cols = slice(blk * bk, min(k, (blk + 1) * bk))
+        want_w[mach, :, cols] = k3_plain(n=int(gated.iters[mach, blk]))[0][mach, :, cols]
+    gate_err = float((gated.beta - want_w).abs().max())
+    counts = sorted(set(want_n.flatten().tolist()))
+    print(f"[kernels] edge {label}, {iters} it.: {json.dumps(shape)}; K2 max abs err "
+          f"{err:.3e} (pin {pin:.3e}); bit-identical: {json.dumps(same)}; K3 tol {tol:.3e}: "
+          f"block counts {gated.iters.flatten().tolist()} (plain {want_n.flatten().tolist()}), "
+          f"max abs err {gate_err:.3e}")
+    check(err <= pin, f"edge {label}: K2 err {err} > {pin}")
+    check(all(same.values()), f"edge {label}: not bit-identical: {same}")
+    check(int((diff != 0).sum()) <= 1 and int(diff.abs().max()) <= CHECK_EVERY,
+          f"edge {label}: K3 block counts {gated.iters.tolist()} vs plain {want_n.tolist()}")
+    check(counts[0] < iters == counts[-1],
+          f"edge {label}: the gate {tol} stopped no block early, or every block")
+    check(gate_err <= pin, f"edge {label}: gated K3 err {gate_err} > {pin}")
+    check(bool(fixed.iters.eq(iters).all()), f"edge {label}: tol=None counts differ")
+
+
 @contextlib.contextmanager
 def plain_state_kernel():
     """Within the block the K3 wrapper runs K3's plain version on the card, uncounted.
@@ -310,6 +470,8 @@ def main() -> None:
     from repro_torch.core.solver_dispatch import solve_dantzig
     from repro_torch.kernels import _launch, build, ops, ref
     from repro_torch.kernels.dantzig_fused import (
+        CLUSTER_SIZES,
+        cluster_fits,
         dantzig_fused_cuda,
         dantzig_fused_state_cuda,
         pick_block_k,
@@ -392,26 +554,31 @@ def main() -> None:
     fold_b = stats.mu_d.unsqueeze(-1).expand(M, D, L_GRID).contiguous()
     fold_lam = lams.expand(M, L_GRID).contiguous()
 
-    def k2_clime():
+    # each takes the launchers' ``cluster`` (None: the cluster model's template)
+    def k2_clime(**kw):
         return dantzig_fused_cuda(stats.sigma, q, factor.inv_eig, eye, clime_lam, rho_cols,
-                                  iters=ITERS, alpha=1.7)
+                                  iters=ITERS, alpha=1.7, **kw)
 
-    def k2_direction():
+    def k2_direction(**kw):
         return dantzig_fused_cuda(stats.sigma, q, factor.inv_eig,
                                   stats.mu_d.unsqueeze(-1).contiguous(),
                                   clime_lam[:, :1].contiguous(), rho_cols[:, :1].contiguous(),
-                                  iters=ITERS, alpha=1.7)
+                                  iters=ITERS, alpha=1.7, **kw)
 
     # K3 on the cold lambda path's CLIME block and direction fold
-    def k3_clime():
+    def k3_clime(**kw):
         return dantzig_fused_state_cuda(stats.sigma, q, factor.inv_eig, eye, clime_lam,
                                         rho_cols, None, iters=ITERS, alpha=1.7, tol=PATH_TOL,
-                                        check_every=CHECK_EVERY)
+                                        check_every=CHECK_EVERY, **kw)
 
-    def k3_fold():
+    def k3_fold(**kw):
         return dantzig_fused_state_cuda(stats.sigma, q, factor.inv_eig, fold_b, fold_lam,
                                         rho_cols[:, :L_GRID].contiguous(), None, iters=ITERS,
-                                        alpha=1.7, tol=PATH_TOL, check_every=CHECK_EVERY)
+                                        alpha=1.7, tol=PATH_TOL, check_every=CHECK_EVERY, **kw)
+
+    # the four K2/K3 calls of the main path: (function, k, K3)
+    main_calls = {"K2 CLIME": (k2_clime, D, False), "K2 k=1": (k2_direction, 1, False),
+                  "K3 CLIME": (k3_clime, D, True), "K3 fold": (k3_fold, L_GRID, True)}
 
     for label, tt in (("scalar t", 0.05), ("per-column t", t_cols)):
         got, want = soft_threshold_cuda(x_shrink, tt), ref.soft_threshold_ref(x_shrink, tt)
@@ -586,6 +753,37 @@ def main() -> None:
                   f"differ; max abs err {err:.3e}")
             check(err <= pins[label], f"K3 {label} {start} tol {tol}: err {err} > {pins[label]}")
             errs["dantzig_fused_state"] = max(errs["dantzig_fused_state"], err)
+
+    # ---- 2 (b). the fused template by launch shape ------------------------------
+    # each main call's template (cluster size, micro-tile, shared memory per
+    # block, the clusters the card keeps resident) and the SHA-256 of its
+    # output bytes (K3: w, z, u1, u2, counts), on the cluster template and on
+    # the streamed one (the first port's kernel, unchanged), each held to the
+    # digests recorded from the first port
+    launches_info, fit_sizes = {}, {}
+    for name, (fn, k, state_io) in main_calls.items():
+        launches_info[name] = info = launch_shape(M, D, k, state_io)
+        fit_sizes[name] = [cs for cs in CLUSTER_SIZES
+                           if cluster_fits(D, info["width"], cs, state_io)]
+        got = digest(fn())
+        info["sha256"] = got
+        # every cluster size that fits, and the streamed template (0)
+        same = {cs: digest(fn(cluster=cs)) == got for cs in fit_sizes[name] + [0]}
+        print(f"[kernels] {name}: {json.dumps(info)}, {M * -(-k // info['block_k'])} "
+              f"clusters; recorded sha256 {RECORDED_DIGESTS[name]}; bit-identical at "
+              f"cluster size: {json.dumps(same)}")
+        check(info["cluster"] > 0,
+              f"{name}: the model sends the main shape to the streamed template")
+        check(all(same.values()), f"{name}: cluster sizes differ bit for bit: {same}")
+        check(got == RECORDED_DIGESTS[name],
+              f"{name}: the output differs from the first port's kernel bit for bit")
+
+    # edge shapes, each against its plain version within the K2 pin, across
+    # blockings and templates bit for bit, and for K3: equal to K2 at
+    # tol=None, a resume split exact, and a gate that stops some blocks early
+    edge_gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for label, d, k, m, iters, split in EDGE_SHAPES:
+        edge_shape_checks(label, d, k, m, iters, split, edge_gen)
 
     # ---- 3. the main path ---------------------------------------------------
     def estimators(cfg, use_kernel, times):
@@ -810,7 +1008,11 @@ def main() -> None:
         "src/repro/kernels/dantzig_fused.py:202", k2_ms, k2_plain_ms,
         ITERS * M * (8 * D * D * D + 20 * D * D),
         4 * (2 * M * D * D + M * D + 2 * M * D * D + 2 * M * D),
-        direction_k1={"ms": k2_dir_ms, **splits["dantzig_fused k=1"]})
+        launch=launches_info["K2 CLIME"],
+        direction_k1={"ms": k2_dir_ms,
+                      "bound_ms": bound(ITERS * M * (8 * D * D + 20 * D),
+                                        4 * (2 * M * D * D + M * D + 4 * M * D + 2 * M))[0],
+                      "launch": launches_info["K2 k=1"], **splits["dantzig_fused k=1"]})
 
     # K3's bound counts the iterations and residual checks this run's data needed
     def k3_clime_plain():
@@ -829,7 +1031,8 @@ def main() -> None:
     fold_bound, _ = bound(*state_kernel_work(fold_counts, L_GRID, L_GRID, ITERS))
     row("dantzig_fused_state", "cuda", "repro_torch/kernels/csrc/dantzig_fused.cu",
         "src/repro/kernels/dantzig_fused.py:222", k3_ms, k3_plain_ms, flops, nbytes,
-        direction_fold={"ms": fold_ms, "bound_ms": fold_bound,
+        launch=launches_info["K3 CLIME"],
+        direction_fold={"ms": fold_ms, "bound_ms": fold_bound, "launch": launches_info["K3 fold"],
                         **splits["dantzig_fused_state fold"]})
     sweep_ms = {name: cuda_ms(lambda: sweep(**warm_kw), 3) for name, warm_kw in (
         ("cold", {}), ("warm", dict(rho_beta=cold.rho_beta, state_beta=cold.state_beta)))}
@@ -839,6 +1042,17 @@ def main() -> None:
           f"fold (k={L_GRID}): {fold_ms:.3f} ms for counts "
           f"{sorted(set(fold_counts.flatten().tolist()))} (bound {fold_bound:.4f} ms)")
     print(f"[times] lambda-path sweeps by CUDA events, ms: {json.dumps(sweep_ms)}")
+    # each main K2/K3 call at every cluster size that fits and on the streamed
+    # template, in two turns: the cluster model's pick beside the others
+    by_size = {}
+    for name, (fn, _, _) in main_calls.items():
+        by_size[name] = {str(cs): [] for cs in fit_sizes[name] + [0]}
+        for _ in range(2):
+            for cs in fit_sizes[name] + [0]:
+                by_size[name][str(cs)].append(cuda_ms(lambda: fn(cluster=cs), 1))
+    print(f"[times] K2/K3 ms by cluster size (0: streamed), in turns, the model's pick "
+          f"{json.dumps({name: info['cluster'] for name, info in launches_info.items()})}: "
+          f"{json.dumps(by_size)}")
     numel = x_shrink.numel()
     st_ms = cuda_ms(lambda: soft_threshold_cuda(x_shrink, t_cols), 200)
     st_scalar_ms = cuda_ms(lambda: soft_threshold_cuda(x_shrink, 0.05), 200)

@@ -16,9 +16,11 @@ the residual-gated early exit, and every entry point accepts a warm
 :func:`solve_dantzig_full` returns the full result (solution, warm rho,
 resumable state, executed iterations per column).
 
-Unlike the TPU, there is no capacity fallback from fused to scan: A and
-Q stream from L2, so ``cfg.fused=True`` means the kernel at every d
-where one column's state fits in shared memory, and an error beyond.
+Unlike the TPU, there is no capacity fallback from fused to scan: where
+A's and Q's rows do not fit a thread-block cluster's shared memory, the
+kernels' streamed template reads them from L2, so ``cfg.fused=True``
+means the kernel at every d where one column's state fits in shared
+memory, and an error beyond.
 Fused is fixed rho with no adaptation, so a silent switch to the scan
 would be different math.
 

@@ -8,8 +8,8 @@
 // AdmmState (z, w, u1, u2) read from and written back to device memory, and,
 // with a tolerance, check_every-iteration chunks gated by the block's max
 // scaled residual, capped at exactly max_iters.  Both are instantiations of
-// one kernel template (kState), so K3 at tol = None from the zero state is K2
-// bit for bit.
+// one template (kState), so K3 at tol = None from the zero state is K2 bit
+// for bit.
 //
 // Per machine: A (the PSD matrix), its eigenvectors Q, inv = 1/(L^2+1),
 // right-hand sides b (d, k), and per-column lam and rho.  Each iteration is
@@ -23,53 +23,91 @@
 // 67 TFLOP/s.  K3's residual check adds five products per chunk (one beta
 // solve and A dz; the next chunk's first iteration computes the same beta and
 // A beta again, so the function itself needs only A dz there), and its state
-// I/O 8 m d k floats, 25.6 MB at that shape:
-// device-memory traffic stays negligible; what the design must manage
-// instead is on-chip capacity and the re-reads of A and Q.
+// I/O 8 m d k floats: device-memory traffic stays negligible.  What the
+// design must manage is on-chip capacity, the latency of each product's
+// in-order sums, and the SMs a launch fills.
 //
-// Design:
-//   * grid (column blocks, machines).  A block owns bk columns of one
-//     machine and runs every iteration inside the kernel, as the TPU kernel
-//     does per grid step; nothing crosses blocks, so there is no
-//     cross-block reduction and no ordering assumption.  K3's gate is per
-//     block, as on the TPU: the whole block stops together.
-//   * the (d, W) state -- z, w, u1, u2, b and two product buffers -- lives in
-//     shared memory (7 d W floats; W is the compile-time column tile >= bk).
-//     A and Q do not fit beside it (2 d^2 floats = 320 KB at d = 200 against
-//     227 KB), so they stream from L2 on every iteration: three (m, d, d)
-//     operands of 3.2 MB at the paper's shape sit in the 50 MB L2.
-//   * K3 keeps no extra (d, W) arrays for the deltas dz, dw of a chunk's last
-//     iteration: that iteration stores A beta in a product buffer and runs
-//     the update as a separate pass, which then overwrites the two product
-//     buffers with dz and dw.  So K3 fits the same 40-column tile as K2 at
-//     d = 200 (5 blocks of 40 for k = 200), with one more per-column row
-//     (rho, for the dual residual) and a small reduction scratch.
-//   * every product is written as out[i, c] = sum_kk Mt[kk, i] in[kk, c] so
-//     that a warp reads one row of Mt with 32 consecutive addresses: Mt is
-//     A^T for A, Q for Q^T, and Q^T for Q (the wrapper passes A^T and Q^T
-//     made once per factor).  The in[kk, :] operand is a shared-memory
-//     broadcast.
-//   * each thread accumulates an R x C micro-tile with fmaf over kk in
-//     order, the same chain in every template.  The products wait on L2
-//     (a machine's block streams A and Q row by row), so narrow tiles give
-//     each thread one row (R = 1, CG = 1): the k = 8 direction fold then
-//     issues one L2 load per kk step and thread, as the k = 1 solve does,
-//     where four rows per thread took four times as long.  The chain is
-//     the same for every tile, and the elementwise update uses
-//     __fadd_rn/__fmul_rn (never contracted), so a column's result does
-//     not depend on bk, on the tile width, or on whether it sits in the
-//     ragged tail block: it is bit-identical.  The tail is masked in the
-//     kernel: columns past k load b = 0, lam = 1, rho = 1 and a zero state,
-//     stay exactly 0, add nothing to the residual and are never stored.
-//   * the elementwise update is fused into the epilogue of the fourth
-//     product, which also writes the next iteration's z + b - u1; four
-//     __syncthreads per iteration.
-//   * the residual gate: every thread folds its entries into a running max
-//     that keeps NaN (as jnp.max does), then a warp-shuffle and
-//     shared-memory reduction gives every thread the same value, so all
-//     threads take the same exit decision and none is left waiting at a
-//     __syncthreads.  A NaN residual ends the loop (res > tol is false).
+// Every output entry of a product is one fmaf chain over kk in order,
+//   out[i, c] = sum_kk M[i, kk] in[kk, c],
+// in both templates below, and the elementwise update uses
+// __fadd_rn/__fmul_rn (never contracted).  So a column's result depends on
+// neither the column blocking, the tile, the cluster size nor the template:
+// the two templates are bit-identical, and a column in the ragged tail block
+// equals the same column in a full one.  The tail is masked: columns past k
+// load b = 0, lam = 1, rho = 1 and a zero state, stay exactly 0, add nothing
+// to the residual and are never stored.  The column blocks (bk columns, in a
+// compile-time tile of width W >= bk) come from the Python blocking model,
+// which is the same for both templates, so K3's gate groups -- the columns
+// that stop together -- do not depend on the template.
+//
+// Two templates; the Python cluster model (repro_torch/kernels/
+// dantzig_fused.py, pick_cluster_size) chooses one per launch shape and
+// passes it as `cluster`, and a launch never switches on failure:
+//
+// THE CLUSTER TEMPLATE (cluster = CS >= 2; d = 200 and every shape whose
+// slices fit).  One thread-block cluster of CS blocks per (machine, column
+// block), launched by cudaLaunchKernelEx.
+//   * The CS blocks split the d output rows: block r owns rows
+//     [r rb, r rb + rb), rb = ceil(d / CS), and keeps, for the whole solve,
+//     its row slices of the three product matrices resident in shared
+//     memory: A[i, kk], Q[kk, i] (the Q^T product) and Q[i, kk] (the Q
+//     product) for its rows i, loaded once with 4-byte cp.async copies that
+//     also transpose, so the wrapper passes A and Q as they are.  No product
+//     touches L2 after that.
+//   * Two full (d, W) buffers hold each product's input and output.  A block
+//     computes its rows for all W columns from its slices and the full input,
+//     and writes its (rb, W) result into the other buffer of every block of
+//     the cluster with st.async stores, which count their bytes on that
+//     buffer's mbarrier in the receiving block.  A block starts a product
+//     once its input buffer's mbarrier has seen all d W entries arrive.  That
+//     is the only synchronisation per product: a block receives a fill only
+//     after every block has finished the product before, the last to read the
+//     buffer being filled.  (The first version synchronised with a cluster
+//     barrier per product, which nvcc precedes with a GPU-scope fence; it
+//     was slower at three of the four main shapes; PERF.md has the times.)
+//   * A thread owns one fixed micro-tile of its block's rows for the whole
+//     solve, and its entries' state z, w, u1, u2, b (and K3's dw) live in its
+//     registers, with its columns' lam, 1/rho, rho and its rows' inv.  Two
+//     tiles, the first whose tiles all get one of the 256 threads:
+//       kRow, 1 x 1, up to 16 columns (k = 1, the lambda path's k = 8 fold):
+//       row-major slices and column-major buffers, so a 16-byte load brings
+//       four kk of each operand and the in-order chain's latency sets the
+//       pace (d dependent fmaf per product);
+//       kBlock, 2 x 4 (the CLIME block): kk-major slices and row-major
+//       buffers, one 8-byte and one 16-byte shared load per 8 FMAs, 2-row
+//       groups fastest across threads.  Shared-memory loads set its pace:
+//       3 bytes per FMA against an SM's 128 bytes and 128 FMAs a cycle.
+//       Larger tiles load less per FMA but leave too few warps to hide the
+//       loads' latency at ~50 rows a block; they ran slower in the design
+//       runs.
+//     Rows past the block's slice are masked, not clamped: no entry is
+//     computed twice.
+//   * K3's gate: each block reduces its residual max (warp shuffles, then
+//     shared memory) and writes it into a slot of every block's shared
+//     memory; after a cluster barrier each block folds the CS values in rank
+//     order, so every thread of the cluster takes the same exit; a NaN
+//     residual ends the loop (res > tol is false).  The count of a
+//     (machine, block) is written once, by the cluster's rank 0.
+//   * The first iteration's input z + b - u1 is read by every block, for all
+//     rows, from device memory; afterwards each block reads and writes only
+//     its own rows' state.
+//
+// THE STREAMED TEMPLATE (cluster = 0; where the slices do not fit a block
+// even at CS = 16, d >~ 550 at k = 1).  The design of the first port:
+//   * grid (column blocks, machines), one block of 256 threads per
+//     (machine, column block), nothing shared across blocks;
+//   * the (d, W) state -- z, w, u1, u2, b and two product buffers -- lives
+//     in shared memory (7 d W floats), and A, A^T-major Q and Q^T stream from
+//     L2 on every product: the wrapper passes A^T and Q^T, made once per
+//     call, so that a warp reads one row of Mt with 32 consecutive addresses;
+//   * each thread accumulates an R x C micro-tile, rows clamped to d - 1
+//     (recomputed, never stored); the update is fused into the fourth
+//     product's epilogue; four __syncthreads per iteration;
+//   * K3 keeps its chunk deltas dz, dw in the two product buffers.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -86,6 +124,8 @@ __device__ __forceinline__ float shrink(float x, float t) {
 __device__ __forceinline__ float max_nan(float a, float b) {
   return (a > b || isnan(a)) ? a : b;
 }
+
+// ---- the streamed template -------------------------------------------------
 
 // out[i, c] = sum_kk mt[kk * d + i] * in[kk * W + c] for i < d, c < W; each
 // result goes to epi(i, c, value).  Threads: RG row groups x CG column groups.
@@ -383,10 +423,11 @@ fused_admm_kernel(const float* __restrict__ at, const float* __restrict__ q,
 }
 
 template <int C, int CG, bool kState>
-int launch(const float* at, const float* q, const float* qt, const float* inv,
-           const float* b, const float* lam, const float* rho, float* out, StateIO io,
-           int m, int d, int k, int bk, int iters, float alpha, float one_minus_alpha,
-           int has_tol, float tol, int check_every, cudaStream_t stream) {
+int launch_streamed(const float* at, const float* q, const float* qt, const float* inv,
+                    const float* b, const float* lam, const float* rho, float* out,
+                    StateIO io, int m, int d, int k, int bk, int iters, float alpha,
+                    float one_minus_alpha, int has_tol, float tol, int check_every,
+                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<kState>(d, C * CG);
   auto kernel = fused_admm_kernel<C, CG, kState>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -400,17 +441,17 @@ int launch(const float* at, const float* q, const float* qt, const float* inv,
 }
 
 template <bool kState>
-int dispatch(const float* at, const float* q, const float* qt, const float* inv,
-             const float* b, const float* lam, const float* rho, float* out, StateIO io,
-             int m, int d, int k, int bk, int width, int iters, float alpha,
-             float one_minus_alpha, int has_tol, float tol, int check_every,
-             cudaStream_t stream) {
+int dispatch_streamed(const float* at, const float* q, const float* qt, const float* inv,
+                      const float* b, const float* lam, const float* rho, float* out,
+                      StateIO io, int m, int d, int k, int bk, int width, int iters,
+                      float alpha, float one_minus_alpha, int has_tol, float tol,
+                      int check_every, cudaStream_t stream) {
   if (bk < 1 || bk > width) return (int)cudaErrorInvalidValue;
-#define FUSED_CASE(WIDTH, C, CG)                                                       \
-  case WIDTH:                                                                          \
-    return launch<C, CG, kState>(at, q, qt, inv, b, lam, rho, out, io, m, d, k, bk,    \
-                                 iters, alpha, one_minus_alpha, has_tol, tol,          \
-                                 check_every, stream);
+#define FUSED_CASE(WIDTH, C, CG)                                                      \
+  case WIDTH:                                                                         \
+    return launch_streamed<C, CG, kState>(at, q, qt, inv, b, lam, rho, out, io, m, d, k, \
+                                          bk, iters, alpha, one_minus_alpha, has_tol,    \
+                                          tol, check_every, stream);
   switch (width) {
     FUSED_CASE(1, 1, 1)
     FUSED_CASE(8, 8, 1)
@@ -425,21 +466,620 @@ int dispatch(const float* at, const float* q, const float* qt, const float* inv,
 #undef FUSED_CASE
 }
 
+// ---- the cluster template -------------------------------------------------
+
+constexpr int kMaxCluster = 16;
+
+// n floats rounded up to whole 16-byte chunks, so every array starts aligned
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// output rows per block of a cluster of cs
+__host__ __device__ constexpr int slice_rows(int d, int cs) { return (d + cs - 1) / cs; }
+
+// The two micro-tiles.  kRow (1 x 1, up to 16 columns): a thread owns one
+// entry; the resident slices are row-major, M[il][kk], with a row stride of
+// an odd number of 16-byte chunks (conflict-free 16-byte loads across rows),
+// and the product buffers column-major, in[c][kk], so one 16-byte load brings
+// four kk of each operand.  kBlock (2 x 4): a thread owns 2 rows x 4
+// columns; the slices are kk-major, M[kk][il], and the buffers row-major,
+// in[kk][c], so one 8-byte and one 16-byte load feed 8 FMAs.  tile_kind
+// takes kRow where its tiles fit the block's threads, else kBlock, else none.
+enum TileKind { kNone = 0, kRow = 1, kBlock = 2 };
+
+__host__ __device__ constexpr int tile_kind(int d, int width, int cs) {
+  return (width <= 16 && slice_rows(d, cs) * width <= kThreads) ? kRow
+         : (width % 4 == 0 && (slice_rows(d, cs) + 1) / 2 * (width / 4) <= kThreads)
+             ? kBlock
+             : kNone;
+}
+
+// the resident slices' stride: kRow per row (kk), kBlock per kk (rows)
+__host__ __device__ constexpr int slice_stride(int d, int cs, int kind) {
+  return kind == kRow ? round4(d) + ((round4(d) / 4) % 2 == 0 ? 4 : 0)
+                      : (slice_rows(d, cs) + 1) / 2 * 2;
+}
+
+__host__ __device__ constexpr int slice_floats(int d, int cs, int kind) {
+  return kind == kRow ? slice_rows(d, cs) * slice_stride(d, cs, kind)
+                      : round4(d * slice_stride(d, cs, kind));
+}
+
+__host__ __device__ constexpr int buffer_floats(int d, int width, int kind) {
+  return kind == kRow ? width * round4(d) : round4(d * width);
+}
+
+// three resident slices, two product buffers, and K3's reduction scratch: a
+// partial per warp and one value per cluster block (the two mbarriers are
+// static shared memory)
+template <bool kState>
+__host__ __device__ constexpr size_t cluster_smem_floats(int d, int width, int cs, int kind) {
+  return 3 * (size_t)slice_floats(d, cs, kind) + 2 * (size_t)buffer_floats(d, width, kind) +
+         (kState ? round4(kWarps + kMaxCluster) : 0);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// the same shared-memory address in cluster block `rank`
+__device__ __forceinline__ unsigned peer_addr(unsigned a, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void bar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+}
+
+// the one arrival of a phase, with the bytes the phase waits for
+__device__ __forceinline__ void bar_expect(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 st, [%0], "
+      "%1;\n}" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT_%=:\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 "
+      "p, [%0], %1;\n @!p bra WAIT_%=;\n}" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// a store into another block's shared memory that counts its bytes on that
+// block's mbarrier
+__device__ __forceinline__ void st_async(unsigned a, const float (&v)[1], unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];" ::"r"(a),
+      "f"(v[0]), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async(unsigned a, const float (&v)[4], unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];" ::"r"(a),
+      "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void load(const float* p, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+    static_assert(N == 2, "micro-tiles load 2 or 4 floats");
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  }
+}
+
+// acc = sum_kk M[rl0 + r, kk] in[kk, c0 + c] from the resident slice sm (stride
+// sp) and the input buffer in: one in-order fmaf chain per entry, the
+// streamed template's chain
+template <int kKind>
+__device__ __forceinline__ void tile_product(const float* sm, int sp, const float* in, int w,
+                                             int dp, int d, int rl0, int c0,
+                                             float (&acc)[kKind == kRow ? 1 : 2]
+                                                        [kKind == kRow ? 1 : 4]) {
+  if constexpr (kKind == kRow) {
+    const float* mp = sm + rl0 * sp;
+    const float* ip = in + c0 * dp;
+    float a = 0.f;
+    int kk = 0;
+#pragma unroll 10
+    for (; kk + 4 <= d; kk += 4) {
+      const float4 m = *reinterpret_cast<const float4*>(mp + kk);
+      const float4 x = *reinterpret_cast<const float4*>(ip + kk);
+      a = fmaf(m.x, x.x, a);
+      a = fmaf(m.y, x.y, a);
+      a = fmaf(m.z, x.z, a);
+      a = fmaf(m.w, x.w, a);
+    }
+    for (; kk < d; ++kk) a = fmaf(mp[kk], ip[kk], a);
+    acc[0][0] = a;
+  } else {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    const float* mp = sm + rl0;
+    const float* ip = in + c0;
+#pragma unroll 4
+    for (int kk = 0; kk < d; ++kk, mp += sp, ip += w) {
+      float mv[2], iv[4];
+      load<2>(mp, mv);
+      load<4>(ip, iv);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(mv[r], iv[c], acc[r][c]);
+    }
+  }
+}
+
+// One block an SM is the design point at the CLIME shape (the slices fill
+// the shared memory); with this hint nvcc schedules every product's loads
+// further ahead: the k = 1 solve ran 1.9x faster on the card (PERF.md).
+template <int kKind, bool kState>
+__global__ void __launch_bounds__(kThreads, 1)
+cluster_fused_admm_kernel(const float* __restrict__ a, const float* __restrict__ q,
+                          const float* __restrict__ inv, const float* __restrict__ b,
+                          const float* __restrict__ lam, const float* __restrict__ rho,
+                          float* __restrict__ out, StateIO io, int d, int k, int bk, int w,
+                          int iters, float alpha, float one_minus_alpha, int has_tol, float tol,
+                          int check_every) {
+  constexpr int R = kKind == kRow ? 1 : 2;
+  constexpr int C = kKind == kRow ? 1 : 4;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const size_t mach = blockIdx.y;
+  const int blk = blockIdx.x / cs;
+  const int col0 = blk * bk;
+  const int ncol = min(bk, k - col0);
+  const int rb = slice_rows(d, cs);
+  const int row0 = rank * rb;
+  const int nrows = max(0, min(rb, d - row0));
+  const size_t dd = (size_t)d * d;
+  a += mach * dd;
+  q += mach * dd;
+  inv += mach * d;
+  const size_t cols = mach * d * k;
+  b += cols;
+  out += cols;
+  lam += mach * k;
+  rho += mach * k;
+
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) unsigned long long bars[2];  // a fill of each product buffer
+  const int slice = slice_floats(d, cs, kKind);
+  const int sp = slice_stride(d, cs, kKind);
+  const int dp = round4(d);
+  const int bsize = buffer_floats(d, w, kKind);
+  float* sa = smem;        // A's rows:   kRow sa[il sp + kk], kBlock sa[kk sp + il] = A[row0 + il, kk]
+  float* sq = sa + slice;  // Q's columns (the Q^T product): Q[kk, row0 + il]
+  float* sqt = sq + slice; // Q's rows (the Q product):      Q[row0 + il, kk]
+  float* bufs = sqt + slice;  // two product buffers of bsize
+  float* red = bufs + 2 * bsize;
+  // entry (i, c) of a product buffer
+  auto cell = [&](int i, int c) { return kKind == kRow ? c * dp + i : i * w + c; };
+  auto slot = [&](int il, int kk) { return kKind == kRow ? il * sp + kk : kk * sp + il; };
+
+  // the resident slices; the copy does the transposes
+  for (int e = threadIdx.x; e < nrows * d; e += kThreads) {
+    const int il = e / d, kk = e % d;
+    const size_t g = (size_t)(row0 + il) * d + kk;
+    cp_async4(sa + slot(il, kk), a + g);
+    cp_async4(sqt + slot(il, kk), q + g);
+  }
+  for (int e = threadIdx.x; e < nrows * d; e += kThreads) {
+    const int kk = e / nrows, il = e % nrows;
+    cp_async4(sq + slot(il, kk), q + (size_t)kk * d + row0 + il);
+  }
+  if constexpr (kKind == kBlock) {  // the odd row of the last 2-row tile
+    const int pad = sp - nrows;
+    for (int e = threadIdx.x; e < pad * d; e += kThreads) {
+      const int s = slot(nrows + e % pad, e / pad);
+      sa[s] = 0.f;
+      sq[s] = 0.f;
+      sqt[s] = 0.f;
+    }
+  }
+
+  // the first input z + b - u1, every row, from device memory
+  const bool warm = kState && io.z0 != nullptr;
+  for (int e = threadIdx.x; e < d * w; e += kThreads) {
+    const int i = e / w, c = e % w;
+    float v = 0.f;
+    if (c < ncol) {
+      const size_t g = (size_t)i * k + col0 + c;
+      v = b[g];
+      if (warm) v = __fsub_rn(__fadd_rn(io.z0[cols + g], v), io.u10[cols + g]);
+    }
+    bufs[cell(i, c)] = v;
+  }
+
+  // the thread's micro-tile: kRow rows fastest, one entry; kBlock 2-row
+  // groups fastest, 2 x 4 entries
+  const int t = threadIdx.x;
+  const int groups = kKind == kRow ? rb : (rb + 1) / 2;
+  const int rl0 = (t % groups) * R;
+  const int c0 = (t / groups) * C;
+  const bool active = t < groups * (w / C) && rl0 < nrows;
+  float z[R][C], wv[R][C], u1[R][C], u2[R][C], bv[R][C], dw[R][C];
+  float lm[C], irho[C], rh[C], iv[R];
+  bool live[R];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const bool lc = active && c0 + c < ncol;
+    const float r = lc ? rho[col0 + c0 + c] : 1.f;
+    lm[c] = lc ? lam[col0 + c0 + c] : 1.f;
+    irho[c] = 1.f / r;
+    rh[c] = r;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    live[r] = active && rl0 + r < nrows;
+    const int i = row0 + rl0 + r;
+    iv[r] = live[r] ? inv[i] : 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const bool on = live[r] && c0 + c < ncol;
+      const size_t g = (size_t)i * k + col0 + c0 + c;
+      bv[r][c] = on ? b[g] : 0.f;
+      z[r][c] = on && warm ? io.z0[cols + g] : 0.f;
+      wv[r][c] = on && warm ? io.w0[cols + g] : 0.f;
+      u1[r][c] = on && warm ? io.u10[cols + g] : 0.f;
+      u2[r][c] = on && warm ? io.u20[cols + g] : 0.f;
+      dw[r][c] = 0.f;
+    }
+  }
+  const unsigned bar0 = smem_addr(&bars[0]);  // buffer j's at bar0 + 8 j
+  if (t == 0) {
+    bar_init(bar0);
+    bar_init(bar0 + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cp_async_wait_all();
+  cluster.sync();  // every block's slices, buffers and barriers ready
+
+  // Stages: each product reads buffer cur and writes its results, from every
+  // block, into buffer cur ^ 1 of every block.  A block waits for a buffer's
+  // fill on that buffer's mbarrier, which counts the bytes the st.async
+  // stores deliver: all d x w entries.  Receiving a fill means every block
+  // has finished the stage before it, which read the buffer the next stage
+  // writes, so no further barrier is needed.
+  const unsigned bytes = (unsigned)(d * w) * 4u;
+  int cur = 0;
+  unsigned parity = 0;  // bit j: the parity of buffer j's next fill
+  bool filled = true;   // buffer 0 holds the first input already
+  auto wait_input = [&]() {
+    if (!filled) {
+      bar_wait(bar0 + 8 * cur, (parity >> cur) & 1u);
+      parity ^= 1u << cur;
+    }
+    filled = false;
+  };
+  // row rl0 + r of the tile, C columns, into the output buffer of every block
+  auto push = [&](int r, const float (&v)[C]) {
+    const int o = cur ^ 1;
+    const unsigned dst = smem_addr(bufs + o * bsize + cell(row0 + rl0 + r, c0));
+    const unsigned bar = bar0 + 8 * o;
+    for (int p = 0; p < cs; ++p) st_async(peer_addr(dst, p), v, peer_addr(bar, p));
+  };
+  // one product from the resident slice sm; epi(acc, in) consumes the tile
+  auto stage = [&](const float* sm, auto epi) {
+    wait_input();
+    if (t == 0) bar_expect(bar0 + 8 * (cur ^ 1), bytes);
+    const float* in = bufs + cur * bsize;
+    if (active) {
+      float acc[R][C];
+      tile_product<kKind>(sm, sp, in, w, dp, d, rl0, c0, acc);
+      epi(acc, in);
+    }
+    cur ^= 1;
+  };
+  auto next_input = [&](int r, float (&v)[C]) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = __fsub_rn(__fadd_rn(z[r][c], bv[r][c]), u1[r][c]);
+  };
+  // beta = Q diag(inv) Q^T (A x + (w - u2)), x = z + b - u1 the input
+  auto beta_solve = [&]() {
+    stage(sa, [&](float (&acc)[R][C], const float*) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!live[r]) continue;
+        float v[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[c] = __fadd_rn(acc[r][c], __fsub_rn(wv[r][c], u2[r][c]));
+        push(r, v);
+      }
+    });
+    stage(sq, [&](float (&acc)[R][C], const float*) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!live[r]) continue;
+        float v[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[c] = __fmul_rn(iv[r], acc[r][c]);
+        push(r, v);
+      }
+    });
+    stage(sqt, [&](float (&acc)[R][C], const float*) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (live[r]) push(r, acc[r]);
+    });
+  };
+  // The over-relaxed clip / shrink / dual update of the tile from ab = A beta,
+  // with beta in the input buffer, in the epilogue of the A beta product.
+  // Its output is the next input z + b - u1, or with deltas (a chunk's last
+  // iteration) dz, with dw kept in registers.
+  auto update = [&](float (&ab)[R][C], bool deltas) {
+    const float* beta = bufs + cur * bsize;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!live[r]) continue;
+      float v[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float zo = z[r][c], wo = wv[r][c], bb = bv[r][c], u1o = u1[r][c];
+        const float u2o = u2[r][c];
+        const float ab_r = __fadd_rn(__fmul_rn(alpha, ab[r][c]),
+                                     __fmul_rn(one_minus_alpha, __fadd_rn(zo, bb)));
+        const float beta_r = __fadd_rn(__fmul_rn(alpha, beta[cell(row0 + rl0 + r, c0 + c)]),
+                                       __fmul_rn(one_minus_alpha, wo));
+        z[r][c] = fminf(fmaxf(__fadd_rn(__fsub_rn(ab_r, bb), u1o), -lm[c]), lm[c]);
+        wv[r][c] = shrink(__fadd_rn(beta_r, u2o), irho[c]);
+        u1[r][c] = __fsub_rn(__fsub_rn(__fadd_rn(u1o, ab_r), z[r][c]), bb);
+        u2[r][c] = __fsub_rn(__fadd_rn(u2o, beta_r), wv[r][c]);
+        if (kState && deltas) {
+          v[c] = __fsub_rn(z[r][c], zo);
+          dw[r][c] = __fsub_rn(wv[r][c], wo);
+        } else {
+          v[c] = __fsub_rn(__fadd_rn(z[r][c], bb), u1[r][c]);
+        }
+      }
+      push(r, v);
+    }
+  };
+  // One ADMM iteration.
+  auto iteration = [&](bool deltas) {
+    beta_solve();
+    stage(sa, [&](float (&acc)[R][C], const float*) { update(acc, deltas); });
+  };
+  // K3's A beta product after a residual check, left pending: held = A beta,
+  // which is, bit for bit, the next chunk's first A beta.  Completed by
+  // update(held, ...) or by passing z + b - u1 on, then cur ^= 1.
+  float held[R][C];
+  auto ab_product = [&]() {
+    wait_input();
+    if (t == 0) bar_expect(bar0 + 8 * (cur ^ 1), bytes);
+    if (active) tile_product<kKind>(sa, sp, bufs + cur * bsize, w, dp, d, rl0, c0, held);
+  };
+  // The cluster's max scaled residual after a chunk, the same in every
+  // thread of every block: max(max |A beta - z - b|, max |beta - w|,
+  // max_c rho_c |A dz + dw|_c) over the live entries, with dz the input.
+  // The A dz product passes z + b - u1 on; the A beta product is left
+  // pending (ab_product).
+  auto residual = [&]() -> float {
+    float local = 0.f;
+    stage(sa, [&](float (&acc)[R][C], const float*) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!live[r]) continue;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          if (c0 + c < ncol)
+            local = max_nan(local, __fmul_rn(rh[c], fabsf(__fadd_rn(acc[r][c], dw[r][c]))));
+        float v[C];
+        next_input(r, v);
+        push(r, v);
+      }
+    });
+    beta_solve();
+    ab_product();
+    const float* beta = bufs + cur * bsize;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!live[r]) continue;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (c0 + c < ncol) {
+          local = max_nan(local, fabsf(__fsub_rn(__fsub_rn(held[r][c], z[r][c]), bv[r][c])));
+          local = max_nan(local,
+                          fabsf(__fsub_rn(beta[cell(row0 + rl0 + r, c0 + c)], wv[r][c])));
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      local = max_nan(local, __shfl_xor_sync(0xffffffffu, local, off));
+    if (t % 32 == 0) red[t / 32] = local;
+    __syncthreads();
+    if (t == 0) {
+      float r = red[0];
+      for (int i = 1; i < kWarps; ++i) r = max_nan(r, red[i]);
+      for (int p = 0; p < cs; ++p) cluster.map_shared_rank(red, p)[kWarps + rank] = r;
+    }
+    cluster.sync();
+    float res = red[kWarps];
+    for (int p = 1; p < cs; ++p) res = max_nan(res, red[kWarps + p]);
+    return res;
+  };
+
+  int it = 0;
+  if (!kState || !has_tol) {
+    for (; it < iters; ++it) iteration(false);
+  } else {
+    // chunks of check_every iterations, the last one clamped so the cap is
+    // exactly iters; res is cluster-uniform, so every thread leaves together.
+    // After a check the next chunk's first iteration starts from the held
+    // A beta.
+    float res = __int_as_float(0x7f800000);  // +inf
+    bool pending = false;
+    while (it < iters && res > tol) {
+      const int n = min(check_every, iters - it);
+      for (int j = 0; j < n; ++j) {
+        if (!pending) {
+          iteration(j + 1 == n);
+          continue;
+        }
+        if (active) update(held, j + 1 == n);
+        cur ^= 1;
+        pending = false;
+      }
+      it += n;
+      if (it >= iters) break;  // capped: the check would not change the outcome
+      res = residual();
+      pending = true;
+    }
+    if (pending) {  // the check ended the loop: pass z + b - u1 on
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!live[r]) continue;
+        float v[C];
+        next_input(r, v);
+        push(r, v);
+      }
+      cur ^= 1;
+    }
+  }
+  // the last stage's stores have landed before any block may leave
+  wait_input();
+  cluster.sync();
+
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (!live[r] || c0 + c >= ncol) continue;
+      const size_t g = (size_t)(row0 + rl0 + r) * k + col0 + c0 + c;
+      out[g] = wv[r][c];
+      if (kState) {
+        io.z[cols + g] = z[r][c];
+        io.u1[cols + g] = u1[r][c];
+        io.u2[cols + g] = u2[r][c];
+      }
+    }
+  if (kState && rank == 0 && t == 0) io.iters[mach * (gridDim.x / cs) + blk] = it;
+}
+
+using ClusterKernel = void (*)(const float*, const float*, const float*, const float*,
+                               const float*, const float*, float*, StateIO, int, int, int, int,
+                               int, float, float, int, float, int);
+
+// The kernel of a cluster launch and its dynamic shared memory, after setting
+// the kernel's attributes; cudaErrorInvalidValue where the shape has no
+// cluster of cs (no micro-tile whose tiles all get a thread).
+template <bool kState>
+cudaError_t cluster_kernel(int d, int width, int cs, size_t* smem, ClusterKernel* kernel) {
+  const int kind = cs < 2 || cs > kMaxCluster ? kNone : tile_kind(d, width, cs);
+  if (kind == kNone) return cudaErrorInvalidValue;
+  *smem = sizeof(float) * cluster_smem_floats<kState>(d, width, cs, kind);
+  *kernel = kind == kRow ? cluster_fused_admm_kernel<kRow, kState>
+                         : cluster_fused_admm_kernel<kBlock, kState>;
+  cudaError_t err =
+      cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  if (err == cudaSuccess && cs > 8)
+    err = cudaFuncSetAttribute(*kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, int cs, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <bool kState>
+int launch_cluster(const float* a, const float* q, const float* inv, const float* b,
+                   const float* lam, const float* rho, float* out, StateIO io, int m, int d,
+                   int k, int bk, int width, int cs, int iters, float alpha,
+                   float one_minus_alpha, int has_tol, float tol, int check_every,
+                   cudaStream_t stream) {
+  size_t smem = 0;
+  ClusterKernel kernel = nullptr;
+  cudaError_t err = cluster_kernel<kState>(d, width, cs, &smem, &kernel);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(dim3(cs * ((k + bk - 1) / bk), m), smem, cs, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, q, inv, b, lam, rho, out, io, d, k, bk, width,
+                           iters, alpha, one_minus_alpha, has_tol, tol, check_every);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <bool kState>
+int cluster_info(int d, int width, int cs, int* info) {
+  size_t smem = 0;
+  ClusterKernel kernel = nullptr;
+  cudaError_t err = cluster_kernel<kState>(d, width, cs, &smem, &kernel);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(cs), smem, cs, nullptr, &attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = clusters;
+  info[1] = (int)smem;
+  info[2] = fa.numRegs;
+  info[3] = (int)fa.localSizeBytes;
+  info[4] = tile_kind(d, width, cs);
+  return 0;
+}
+
 }  // namespace
 
-// The launchers.  width is the compile-time column tile (>= bk); the Python
-// blocking model (repro_torch/kernels/dantzig_fused.py) picks it and sizes
-// the shared memory with the same formula as smem_floats.  Each returns
-// cudaGetLastError() after the launch (0 on success).
+// The launchers.  width is the compile-time column tile (>= bk) and cluster
+// the template: CS >= 2 blocks per cluster, or 0 for the streamed template,
+// which alone reads at = A^T and qt = Q^T (null for a cluster launch).  The
+// Python models (repro_torch/kernels/dantzig_fused.py) pick bk, width and
+// cluster and size the shared memory with the same formulas as smem_floats
+// and cluster_smem_floats.  Each returns the launch's cudaError (0 on
+// success).
 
 // K2: iters iterations from the zero state; writes w (m, d, k).
-extern "C" int dantzig_fused_launch(const float* at, const float* q, const float* qt,
-                                    const float* inv, const float* b, const float* lam,
-                                    const float* rho, float* out, int m, int d, int k,
-                                    int bk, int width, int iters, float alpha,
-                                    float one_minus_alpha, cudaStream_t stream) {
-  return dispatch<false>(at, q, qt, inv, b, lam, rho, out, StateIO{}, m, d, k, bk, width,
-                         iters, alpha, one_minus_alpha, 0, 0.f, 1, stream);
+extern "C" int dantzig_fused_launch(const float* a, const float* q, const float* at,
+                                    const float* qt, const float* inv, const float* b,
+                                    const float* lam, const float* rho, float* out, int m,
+                                    int d, int k, int bk, int width, int cluster, int iters,
+                                    float alpha, float one_minus_alpha, cudaStream_t stream) {
+  if (bk < 1 || bk > width) return (int)cudaErrorInvalidValue;
+  if (cluster > 0)
+    return launch_cluster<false>(a, q, inv, b, lam, rho, out, StateIO{}, m, d, k, bk, width,
+                                 cluster, iters, alpha, one_minus_alpha, 0, 0.f, 1, stream);
+  if (at == nullptr || qt == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch_streamed<false>(at, q, qt, inv, b, lam, rho, out, StateIO{}, m, d, k, bk,
+                                  width, iters, alpha, one_minus_alpha, 0, 0.f, 1, stream);
 }
 
 // K3: from the warm state (z0, w0, u10, u20; all null for the zero state),
@@ -447,16 +1087,35 @@ extern "C" int dantzig_fused_launch(const float* at, const float* q, const float
 // the final state (w, z, u1, u2: (m, d, k)) and the executed iterations of
 // every (machine, block), iters_out (m, blocks) int32.
 extern "C" int dantzig_fused_state_launch(
-    const float* at, const float* q, const float* qt, const float* inv, const float* b,
-    const float* lam, const float* rho, const float* z0, const float* w0,
+    const float* a, const float* q, const float* at, const float* qt, const float* inv,
+    const float* b, const float* lam, const float* rho, const float* z0, const float* w0,
     const float* u10, const float* u20, float* w, float* z, float* u1, float* u2,
-    int* iters_out, int m, int d, int k, int bk, int width, int max_iters, float alpha,
-    float one_minus_alpha, int has_tol, float tol, int check_every, cudaStream_t stream) {
+    int* iters_out, int m, int d, int k, int bk, int width, int cluster, int max_iters,
+    float alpha, float one_minus_alpha, int has_tol, float tol, int check_every,
+    cudaStream_t stream) {
   if (has_tol && check_every < 1) return (int)cudaErrorInvalidValue;
+  if (bk < 1 || bk > width) return (int)cudaErrorInvalidValue;
   const bool warm = z0 != nullptr;
   if (warm != (w0 != nullptr) || warm != (u10 != nullptr) || warm != (u20 != nullptr))
     return (int)cudaErrorInvalidValue;
   const StateIO io{z0, w0, u10, u20, z, u1, u2, iters_out};
-  return dispatch<true>(at, q, qt, inv, b, lam, rho, w, io, m, d, k, bk, width, max_iters,
-                        alpha, one_minus_alpha, has_tol, tol, check_every, stream);
+  if (cluster > 0)
+    return launch_cluster<true>(a, q, inv, b, lam, rho, w, io, m, d, k, bk, width, cluster,
+                                max_iters, alpha, one_minus_alpha, has_tol, tol, check_every,
+                                stream);
+  if (at == nullptr || qt == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch_streamed<true>(at, q, qt, inv, b, lam, rho, w, io, m, d, k, bk, width,
+                                 max_iters, alpha, one_minus_alpha, has_tol, tol, check_every,
+                                 stream);
+}
+
+// What a cluster launch of this shape gets on the card: info[0] the
+// clusters that can be resident at once (cudaOccupancyMaxActiveClusters),
+// info[1] the dynamic shared memory per block in bytes, info[2] registers
+// per thread, info[3] local (spilled) bytes per thread, info[4] the
+// micro-tile (1: 1 x 1, 2: 2 x 4).  K3 with state_io.
+extern "C" int dantzig_fused_cluster_info(int d, int width, int cluster, int state_io,
+                                          int* info) {
+  return state_io ? cluster_info<true>(d, width, cluster, info)
+                  : cluster_info<false>(d, width, cluster, info);
 }

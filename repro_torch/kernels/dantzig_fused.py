@@ -5,28 +5,35 @@ from a warm :class:`AdmmState`, hands the final state back, and with a
 ``tol`` stops each column block once its max scaled residual is at most
 ``tol``.  The CUDA C++ source and its design notes are in
 ``csrc/dantzig_fused.cu``: both kernels are instantiations of one
-template.  This module holds the Hopper blocking model that sizes the
-kernels' column blocks, and the launchers.
+template, which comes in two forms, the cluster template and the
+streamed one.  This module holds the two models that shape a launch
+and the launchers.
 
-Blocking model.  The TPU kernel keeps A and Q resident in VMEM next to
-the column block, so its model (``fused_block_vmem_bytes`` /
-``pick_block_k`` in the reference) has a capacity cliff: when A and Q
-alone exceed the budget, the dispatcher falls back to the scan solver
-(d >~ 1250 on the TPU).  On Hopper A and Q stream from L2, so only the
-(d, W) column state sits in shared memory: seven (d, W) f32 arrays
-(z, w, u1, u2, b and two product buffers) plus per-column lam and 1/rho,
-against the 227 KB a block may use.  K3 (``state_io``) streams its state
-through global memory and keeps its chunk deltas in the two product
-buffers, so it adds only a per-column rho row and a reduction scratch:
-both kernels take 40-column tiles at d = 200.  ``W`` is one of the
-kernels' compile-time column tiles.  There is no fallback:
-``cfg.fused=True`` runs these kernels at every d where one column fits
-(d <~ 8300), and raises beyond.
+Blocking model (the column blocks).  The TPU kernel keeps A and Q
+resident in VMEM next to the column block, so its model
+(``fused_block_vmem_bytes`` / ``pick_block_k`` in the reference) has a
+capacity cliff: when A and Q alone exceed the budget, the dispatcher
+falls back to the scan solver (d >~ 1250 on the TPU).  The port sizes
+its column blocks by the streamed template's footprint: seven (d, W)
+f32 arrays (z, w, u1, u2, b and two product buffers) plus per-column
+lam and 1/rho, against the 227 KB a block may use; K3 (``state_io``)
+adds a per-column rho row and a reduction scratch.  Both kernels take
+40-column tiles at d = 200.  ``W`` is one of the kernels'
+compile-time column tiles.  There is no fallback: ``cfg.fused=True``
+runs these kernels at every d where one column fits (d <~ 8300), and
+raises beyond.  K3 gates each block on its own, as the TPU kernel does,
+so with ``tol`` set a column's iteration count depends on its
+block-mates: the blocking is computed the same way on every device and
+for both templates (:func:`resolve_block_k`), and the CPU's plain
+version gates the same blocks.
 
-K3 gates each block on its own, as the TPU kernel does, so with ``tol``
-set a column's iteration count depends on its block-mates: the blocking
-is computed the same way on every device (:func:`resolve_block_k`), and
-the CPU's plain version gates the same blocks.
+Cluster model (the template).  Each (machine, column block) runs as a
+thread-block cluster of CS blocks that split the d rows and keep their
+row slices of A, Q^T and Q resident in shared memory
+(:func:`cluster_smem_bytes`), or, where no cluster size fits, as one
+block that streams A and Q from L2 (the streamed template, CS = 0).
+:func:`pick_cluster_size` makes that choice from the shape alone; a
+launch never switches templates on an error.
 """
 
 from __future__ import annotations
@@ -44,6 +51,16 @@ SMEM_BYTES = 227 * 1024
 TILE_WIDTHS = (1, 8, 16, 24, 32, 40, 48)
 # K3's block-wide max reduction: one partial per warp of 256 threads, and the result.
 REDUCE_FLOATS = 256 // 32 + 1
+
+# The cluster sizes a launch may take; 16 is beyond the portable 8 and set
+# per kernel (cudaFuncAttributeNonPortableClusterSizeAllowed).
+CLUSTER_SIZES = (2, 4, 8, 16)
+# K3's cluster reduction scratch: a partial per warp, a slot per cluster block.
+CLUSTER_REDUCE_FLOATS = 256 // 32 + CLUSTER_SIZES[-1]
+# The two mbarriers of the product buffers (static shared memory).
+CLUSTER_STATIC_SMEM_BYTES = 16
+# Threads per block, each owning one micro-tile.
+THREADS = 256
 
 
 class AdmmState(NamedTuple):
@@ -101,6 +118,67 @@ def resolve_block_k(d: int, k: int, block_k: int | None, state_io: bool = False)
     return max(1, min(block_k, k, max_block_k(d, state_io=state_io)))
 
 
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def cluster_tile(d: int, width: int, cluster: int) -> str | None:
+    """The cluster template's micro-tile at a shape (csrc ``tile_kind``): "row" (1 x 1,
+    up to 16 columns) or "block" (2 x 4), the first whose tiles each get a thread."""
+    rows = -(-d // cluster)
+    if width <= 16 and rows * width <= THREADS:
+        return "row"
+    if width % 4 == 0 and -(-rows // 2) * (width // 4) <= THREADS:
+        return "block"
+    return None
+
+
+def cluster_smem_bytes(d: int, width: int, cluster: int, state_io: bool = False) -> int:
+    """Dynamic shared memory of one cluster block (csrc ``cluster_smem_floats``): three
+    resident row slices, two (d, W) product buffers and K3's reduction scratch."""
+    tile = cluster_tile(d, width, cluster)
+    if tile is None:
+        raise ValueError(f"no cluster micro-tile fits d={d}, W={width} at {cluster} blocks")
+    rows = -(-d // cluster)
+    if tile == "row":
+        stride = _round4(d) + (4 if _round4(d) // 4 % 2 == 0 else 0)
+        slice_, buffer = rows * stride, width * _round4(d)
+    else:
+        slice_, buffer = _round4(d * -(-rows // 2) * 2), _round4(d * width)
+    red = _round4(CLUSTER_REDUCE_FLOATS) if state_io else 0
+    return 4 * (3 * slice_ + 2 * buffer + red)
+
+
+def cluster_fits(d: int, width: int, cluster: int, state_io: bool = False) -> bool:
+    """Whether a cluster of this size can run the shape: at most one block per row, a
+    micro-tile whose tiles each get a thread, and a block within the shared memory."""
+    return (cluster <= d and cluster_tile(d, width, cluster) is not None
+            and cluster_smem_bytes(d, width, cluster, state_io) + CLUSTER_STATIC_SMEM_BYTES
+            <= SMEM_BYTES)
+
+
+def pick_cluster_size(d: int, width: int, state_io: bool = False) -> int:
+    """The template of a launch: the smallest cluster size that fits with the 1 x 1 tile,
+    else the smallest that fits with the 2 x 4 one, else 0, the streamed template.
+
+    The 1 x 1 tile loads less shared memory per FMA, and a smaller cluster
+    pushes each product's rows into fewer blocks; at d = 200 this picks
+    what the card ran fastest of every cluster size (PERF.md).
+    """
+    fits = [cs for cs in CLUSTER_SIZES if cluster_fits(d, width, cs, state_io)]
+    rows = [cs for cs in fits if cluster_tile(d, width, cs) == "row"]
+    return (rows or fits or [0])[0]
+
+
+def resolve_cluster(d: int, width: int, cluster: int | None, state_io: bool = False) -> int:
+    """The cluster size a launch uses: the model's, or ``cluster`` (0: streamed)."""
+    if cluster is None:
+        return pick_cluster_size(d, width, state_io)
+    if cluster and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster must be 0 or one of {CLUSTER_SIZES}, got {cluster}")
+    return cluster
+
+
 def tile_width(bk: int) -> int:
     """The narrowest compile-time tile that holds ``bk`` columns."""
     for w in TILE_WIDTHS:
@@ -110,11 +188,42 @@ def tile_width(bk: int) -> int:
 
 
 _K2 = _launch.CFunction("dantzig_fused", "dantzig_fused_launch",
-                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+                        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
                         + [ctypes.c_void_p])
 _K3 = _launch.CFunction("dantzig_fused", "dantzig_fused_state_launch",
-                        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+                        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
                         + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_INFO = _launch.CFunction("dantzig_fused", "dantzig_fused_cluster_info",
+                          [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+class ClusterInfo(NamedTuple):
+    """What the card reports for a cluster launch shape."""
+
+    max_active_clusters: int  # cudaOccupancyMaxActiveClusters
+    smem_bytes: int  # dynamic shared memory per block
+    registers: int  # per thread
+    local_bytes: int  # spilled, per thread
+    tile: int  # the micro-tile: 1 the 1 x 1 "row", 2 the 2 x 4 "block"
+
+
+def cluster_info(d: int, width: int, cluster: int, state_io: bool = False) -> ClusterInfo:
+    """The card's occupancy and resource use of one cluster launch shape."""
+    info = (ctypes.c_int * 5)()
+    _launch.raise_on_error("dantzig_fused_cluster_info",
+                           _INFO(d, width, cluster, int(state_io), ctypes.addressof(info)))
+    return ClusterInfo(*info)
+
+
+def _transposes(a, q, cluster):
+    """A^T and Q^T for the streamed template; the cluster template transposes on the card."""
+    if cluster:
+        return None, None
+    return a.mT.contiguous(), q.mT.contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check_operands(a, q, inv_eig, b, lam, rho):
@@ -133,39 +242,43 @@ def _check_operands(a, q, inv_eig, b, lam, rho):
 
 
 def dantzig_fused_cuda(a, q, inv_eig, b, lam, rho, *, iters: int, alpha: float,
-                       block_k: int | None = None) -> torch.Tensor:
+                       block_k: int | None = None, cluster: int | None = None) -> torch.Tensor:
     """Launch K2 once for every machine and column block.
 
     a, q: (m, d, d); inv_eig: (m, d); b: (m, d, k); lam, rho: (m, k);
     all f32 on one card.  ``block_k`` None sizes the blocks with
-    :func:`pick_block_k`.  Returns w: (m, d, k).
+    :func:`pick_block_k`; ``cluster`` None picks the template with
+    :func:`pick_cluster_size`, else it is the cluster size (0: the
+    streamed template).  Returns w: (m, d, k).
     """
     m, d, k, dev = _check_operands(a, q, inv_eig, b, lam, rho)
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
     bk = resolve_block_k(d, k, block_k)
     width = tile_width(bk)
-    at = a.mT.contiguous()
-    qt = q.mT.contiguous()
+    cs = resolve_cluster(d, width, cluster)
+    at, qt = _transposes(a, q, cs)
     out = torch.empty((m, d, k), dtype=torch.float32, device=dev)
-    code = _K2(*(t.data_ptr() for t in (at, q, qt, inv_eig, b, lam, rho, out)),
-               m, d, k, bk, width, iters, alpha, 1.0 - alpha, _launch.stream(dev))
+    code = _K2(a.data_ptr(), q.data_ptr(), _ptr(at), _ptr(qt),
+               *(t.data_ptr() for t in (inv_eig, b, lam, rho, out)),
+               m, d, k, bk, width, cs, iters, alpha, 1.0 - alpha, _launch.stream(dev))
     _launch.raise_on_error("dantzig_fused", code)
     return out
 
 
 def dantzig_fused_state_cuda(a, q, inv_eig, b, lam, rho, state: AdmmState | None = None, *,
                              iters: int, alpha: float, tol: float | None = None,
-                             check_every: int = 10,
-                             block_k: int | None = None) -> FusedSolveResult:
+                             check_every: int = 10, block_k: int | None = None,
+                             cluster: int | None = None) -> FusedSolveResult:
     """Launch K3 once for every machine and column block.
 
     Operands as :func:`dantzig_fused_cuda`; ``state`` None starts from
     zero, else its leaves are (m, d, k) f32 on the card.  ``tol`` None
     runs exactly ``iters`` iterations; otherwise ``check_every``-iteration
     chunks until the block's max scaled residual is at most ``tol``,
-    capped at ``iters``.  Returns w (m, d, k), the final state and the
-    executed iterations (m, num_blocks) int32.
+    capped at ``iters``.  ``cluster`` as :func:`dantzig_fused_cuda`.
+    Returns w (m, d, k), the final state and the executed iterations
+    (m, num_blocks) int32.
     """
     m, d, k, dev = _check_operands(a, q, inv_eig, b, lam, rho)
     if iters < 0:
@@ -177,15 +290,16 @@ def dantzig_fused_state_cuda(a, q, inv_eig, b, lam, rho, state: AdmmState | None
             _launch.check_operand(f"state.{name}", leaf, (m, d, k), dev)
     bk = resolve_block_k(d, k, block_k, state_io=True)
     width = tile_width(bk)
-    at = a.mT.contiguous()
-    qt = q.mT.contiguous()
+    cs = resolve_cluster(d, width, cluster, state_io=True)
+    at, qt = _transposes(a, q, cs)
     w, z, u1, u2 = (torch.empty((m, d, k), dtype=torch.float32, device=dev) for _ in range(4))
     counts = torch.empty((m, -(-k // bk)), dtype=torch.int32, device=dev)
     state_in = (None,) * 4 if state is None else tuple(leaf.data_ptr() for leaf in state)
     code = _K3(
-        *(t.data_ptr() for t in (at, q, qt, inv_eig, b, lam, rho)), *state_in,
+        a.data_ptr(), q.data_ptr(), _ptr(at), _ptr(qt),
+        *(t.data_ptr() for t in (inv_eig, b, lam, rho)), *state_in,
         *(t.data_ptr() for t in (w, z, u1, u2, counts)),
-        m, d, k, bk, width, iters, alpha, 1.0 - alpha,
+        m, d, k, bk, width, cs, iters, alpha, 1.0 - alpha,
         int(tol is not None), 0.0 if tol is None else tol, check_every, _launch.stream(dev))
     _launch.raise_on_error("dantzig_fused_state", code)
     return FusedSolveResult(w, AdmmState(z, w, u1, u2), counts)

@@ -449,3 +449,64 @@ def test_state_io_blocking_model_at_paper_shape():
         fused_model.max_block_k(8301, state_io=True)
     with pytest.raises(ValueError, match="shared memory"):
         select_solver(DantzigConfig(fused=True, tol=1e-4), 8301, 1)
+
+
+# --- the Hopper cluster model -----------------------------------------------------
+
+
+@pytest.mark.parametrize("k, state_io, cluster, tile, smem", [
+    (1, False, 4, "row", 124_000),  # the direction solve: 1 x 1 slices fit from 4 blocks
+    (8, True, 8, "row", 74_096),  # the lambda path's fold: 1 x 1 tiles need 25 rows a block
+    (200, False, 4, "block", 184_000),  # CLIME: 2 x 4 tiles, 50 rows a block
+    (200, True, 4, "block", 184_096),  # K3 adds its cluster reduction scratch
+], ids=["k=1", "fold k=8", "CLIME K2", "CLIME K3"])
+def test_cluster_model_at_paper_shapes(k, state_io, cluster, tile, smem):
+    # d = 200, m = 20: the cluster template at every main shape, with the
+    # shared memory per block the card reports for it
+    bk = fused_model.resolve_block_k(200, k, None, state_io=state_io)
+    width = fused_model.tile_width(bk)
+    assert fused_model.pick_cluster_size(200, width, state_io) == cluster
+    assert fused_model.cluster_tile(200, width, cluster) == tile
+    assert fused_model.cluster_smem_bytes(200, width, cluster, state_io) == smem
+    assert smem + fused_model.CLUSTER_STATIC_SMEM_BYTES <= fused_model.SMEM_BYTES
+
+
+@pytest.mark.parametrize("width, state_io, fits", [
+    (1, False, {2: False, 4: True, 8: True, 16: True}),  # 3 slices of 100 rows: 245 KB
+    (8, True, {2: False, 4: True, 8: True, 16: True}),  # 2 x 4 tiles at 4 blocks
+    (40, False, {2: False, 4: True, 8: True, 16: True}),  # 100 rows: 500 tiles of 2 x 4
+])
+def test_cluster_fit_rule_prefers_the_row_tile_then_the_smallest_cluster(width, state_io,
+                                                                         fits):
+    # the fold fits a 2 x 4 tile at 4 blocks but takes the 1 x 1 one at 8
+    assert {cs: fused_model.cluster_fits(200, width, cs, state_io)
+            for cs in fused_model.CLUSTER_SIZES} == fits
+    row = [cs for cs, ok in fits.items() if ok and fused_model.cluster_tile(200, width, cs) == "row"]
+    first = (row or [cs for cs, ok in fits.items() if ok])[0]
+    assert fused_model.pick_cluster_size(200, width, state_io) == first
+
+
+@pytest.mark.parametrize("d, k, cluster", [
+    (400, 1, 16),  # slices fit only at 16 blocks a cluster
+    (512, 40, 0),  # 14-column blocks: the 1 x 1 tile has too many rows, 2 x 4 too little room
+    (550, 1, 0),  # three 35-row slices of 550 floats exceed a block's shared memory
+    (37, 8, 2),  # a small d: two blocks of 19 rows
+])
+def test_cluster_model_sends_oversized_slices_to_the_streamed_template(d, k, cluster):
+    width = fused_model.tile_width(fused_model.resolve_block_k(d, k, None))
+    assert fused_model.pick_cluster_size(d, width) == cluster
+    fitting = [cs for cs in fused_model.CLUSTER_SIZES if fused_model.cluster_fits(d, width, cs)]
+    assert bool(fitting) == bool(cluster)
+    for cs in fitting:
+        assert (fused_model.cluster_smem_bytes(d, width, cs)
+                + fused_model.CLUSTER_STATIC_SMEM_BYTES <= fused_model.SMEM_BYTES)
+
+
+def test_resolve_cluster_takes_a_size_or_the_model():
+    assert fused_model.resolve_cluster(200, 1, None) == 4
+    assert fused_model.resolve_cluster(200, 1, 0) == 0
+    assert fused_model.resolve_cluster(200, 1, 16) == 16
+    with pytest.raises(ValueError, match="cluster"):
+        fused_model.resolve_cluster(200, 1, 3)
+    with pytest.raises(ValueError, match="micro-tile"):
+        fused_model.cluster_smem_bytes(200, 48, 2)
