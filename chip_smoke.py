@@ -30,7 +30,11 @@ Phases, each of which exits non-zero on failure:
    block, a shape sent to the streamed template): within the K2 pin of the
    plain version, bit-identical across blockings and templates, K3 equal
    to K2 at ``tol=None`` and across a resume, and with a gate that stops
-   some blocks early the plain version's per-block counts;
+   some blocks early the plain version's per-block counts; and the same
+   checks at the launch shapes runs (d) and (e) add, on their own
+   statistics (K2 at d = 120, k = 5 and 120; the K3 fold, k = 40 at
+   d = 120; K2 and K3 at m = 80, d = 200, k = 1 and 200), each with its
+   template and the card's cudaOccupancyMaxActiveClusters;
 3. main path: Algorithm 1 at the paper's §5.1 size (d = 200, AR(0.8),
    10 signal coordinates, N = 10,000 over m = 20 machines, 500 ADMM
    iterations) through the entry points a user calls, twice --
@@ -44,6 +48,22 @@ Phases, each of which exits non-zero on failure:
    lambda chosen on a separate validation draw and by KKT, and the
    aggregate's statistics at every grid point held against the same
    sweep run with the plain versions;
+   (d) the multiclass design (``repro_torch/configs/multiclass_rounds.py``,
+   MULTICLASS: d = 120, K = 5, m = 20, n = 400 a machine, 600
+   iterations, fused): the distributed (two K2), naive and centralized
+   estimators, accuracy on a held-out draw of 2,000 and F1 against the
+   true directions, and the K-class lambda path (8 grid points, the
+   K * L = 40 direction columns in one K3 fold; cold, then warm), each
+   held against the same run on the plain versions (F1 and accuracy
+   equal, l2 within 1e-4, 1e-3 on the tol-gated path);
+   (e) the refinement rounds (ROUNDS: d = 200, N = 10,000 over m = 80,
+   600 iterations): one set of machine solves (two K2) drives dense
+   rounds T = 1..3 (T = 1 the one-shot mean bit for bit), the identity
+   codec (dense bit for bit), top-20% int8 uplinks (at most 25% of the
+   dense bits), 10% dropout masked and unmasked, and every machine NaN
+   in every round (the masked aggregate finite); then a tol-gated
+   re-entry with ``collect_info`` (two K3 a call), warm fewer
+   iterations than cold; each held against the plain versions;
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function (where there is one), with CUDA events
    over back-to-back calls (``ms``), and the cold and warm sweeps; and
@@ -52,7 +72,8 @@ Phases, each of which exits non-zero on failure:
    host time (``host_us``: the wrapper's wall time over unsynchronised
    calls), K1 also with the L2 cache flushed before each call; and the
    four K2/K3 calls at every cluster size that fits and on the streamed
-   template, in turns.
+   template, in turns; and each launch shape of runs (d) and (e) (time,
+   device and host split, bound, launches), with the runs' stages.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
@@ -60,15 +81,18 @@ and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import torch
 
-from repro_torch.configs import SYNTHETIC
+from repro_torch.configs import MULTICLASS, ROUNDS, SYNTHETIC
 
 # Dense peaks of an H100 SXM from NVIDIA's data sheet: FP32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -94,6 +118,12 @@ PATH_TOL, CHECK_EVERY = 1e-2, 10
 LOOSE_TOL = 0.1  # K3 phase only: a gate the cold CLIME blocks reach inside 200 iterations
 N_VAL = 2000
 STAGE_REPS = 5  # run (b)'s stages are host-bound: their wall times spread between runs
+# Run (d), the multiclass design (configuration MULTICLASS: d = 120, K = 5, m = 20,
+# n = 400 a machine, 600 iterations), and its lambda path: 8 grid points around lam,
+# the K * L = 40 direction columns in one fold.  Run (e), the refinement rounds
+# (configuration ROUNDS: d = 200, N = 10,000 over m = 80, T = 3, 600 iterations).
+MC_L_GRID = 8
+INT8_SHARE = 0.25  # top-20% int8 uplinks: at most this share of the dense uplink bits
 
 
 FAILURES: list[str] = []
@@ -239,7 +269,8 @@ def smi_line() -> str:
     return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
 
 
-def state_kernel_work(counts: torch.Tensor, k: int, bk: int, max_iters: int) -> tuple[int, int]:
+def state_kernel_work(counts: torch.Tensor, k: int, bk: int, max_iters: int,
+                      d: int = D) -> tuple[int, int]:
     """(FLOP, bytes) K3's function needs for the executed per-(machine, block) ``counts``.
 
     Every iteration costs four (d, d) x (d, cols) products and ~20
@@ -257,9 +288,41 @@ def state_kernel_work(counts: torch.Tensor, k: int, bk: int, max_iters: int) -> 
         for n in row:
             checks = -(-n // CHECK_EVERY) - (1 if n >= max_iters else 0)
             ending = 1 if n < max_iters else 0
-            flops += (n * (8 * D * D + 20 * D) + checks * 2 * D * D + ending * 8 * D * D) * cols
-    nbytes = 4 * (2 * m * D * D + m * D + 2 * m * k + 9 * m * D * k + m * nb)
+            flops += (n * (8 * d * d + 20 * d) + checks * 2 * d * d + ending * 8 * d * d) * cols
+    nbytes = 4 * (2 * m * d * d + m * d + 2 * m * k + 9 * m * d * k + m * nb)
     return flops, nbytes
+
+
+def fixed_kernel_work(m: int, d: int, k: int, iters: int) -> tuple[int, int]:
+    """(FLOP, bytes) of K2's function: per iteration four (d, d) x (d, k) products and ~20
+    elementwise operations per entry; A, Q, inv, b, lam and rho read once, w written once."""
+    return (iters * m * (8 * d * d * k + 20 * d * k),
+            4 * (2 * m * d * d + m * d + 2 * m * d * k + 2 * m * k))
+
+
+@contextlib.contextmanager
+def shape_tally(counter: collections.Counter):
+    """Within the block, tally the (kernel, m, d, k) of every K2 and K3 launch.
+
+    The tally sits below the wrappers' launch counters (``ops.LAUNCHES``,
+    which stay the evidence of a launch) and only splits them by shape.
+    """
+    from repro_torch.kernels import ops
+
+    k2, k3 = ops.dantzig_fused_cuda, ops.dantzig_fused_state_cuda
+
+    def tally(name, launcher):
+        def launch(a, q, inv_eig, b, *args, **kw):
+            counter[(name, *b.shape)] += 1
+            return launcher(a, q, inv_eig, b, *args, **kw)
+        return launch
+
+    ops.dantzig_fused_cuda = tally("dantzig_fused", k2)
+    ops.dantzig_fused_state_cuda = tally("dantzig_fused_state", k3)
+    try:
+        yield counter
+    finally:
+        ops.dantzig_fused_cuda, ops.dantzig_fused_state_cuda = k2, k3
 
 
 def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -340,24 +403,28 @@ def launch_shape(m: int, d: int, k: int, state_io: bool) -> dict:
 
 
 def edge_shape_checks(label, d, k, m, iters, split, gen) -> None:
-    """K2 and K3 at one edge shape against their plain versions, across blockings and
-    templates, at tol=None, across a resume, and with a gate that stops some blocks
-    early and not others."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.dantzig_fused import (
-        dantzig_fused_cuda,
-        dantzig_fused_state_cuda,
-        resolve_block_k,
-    )
+    """K2 and K3 at one edge shape, on random inputs, against their plain versions."""
     from repro_torch.kernels.spectral import spectral_factor
 
     dev = torch.device(DEVICE)
     x = torch.randn(m, 2 * d, d, generator=gen, device=dev)
     fac = spectral_factor(x.mT @ x / (2 * d))
-    a, q, inv = fac.sigma.contiguous(), fac.q.contiguous(), fac.inv_eig.contiguous()
     b = torch.randn(m, d, k, generator=gen, device=dev)
     lam = 0.02 + 0.05 * torch.rand(m, k, generator=gen, device=dev)
     rho = 0.5 + torch.rand(m, k, generator=gen, device=dev)
+    shape_checks(f"edge {label}", fac, b, lam, rho, iters, split)
+
+
+def shape_checks(label, fac, b, lam, rho, iters, split) -> dict:
+    """K2 and K3 at one launch shape against their plain versions, across blockings and
+    templates, at tol=None, across a resume, and with a gate that stops some blocks
+    early and not others.  Returns the K3 launch shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dantzig_fused import dantzig_fused_cuda, dantzig_fused_state_cuda
+
+    m, d, k = b.shape
+    a, q, inv = fac.sigma.contiguous(), fac.q.contiguous(), fac.inv_eig.contiguous()
+    dev = b.device
     shape = launch_shape(m, d, k, True)
     bk = shape["block_k"]
 
@@ -410,18 +477,108 @@ def edge_shape_checks(label, d, k, m, iters, split, gen) -> None:
         want_w[mach, :, cols] = k3_plain(n=int(gated.iters[mach, blk]))[0][mach, :, cols]
     gate_err = float((gated.beta - want_w).abs().max())
     counts = sorted(set(want_n.flatten().tolist()))
-    print(f"[kernels] edge {label}, {iters} it.: {json.dumps(shape)}; K2 max abs err "
+    print(f"[kernels] {label}, {iters} it.: {json.dumps(shape)}; K2 max abs err "
           f"{err:.3e} (pin {pin:.3e}); bit-identical: {json.dumps(same)}; K3 tol {tol:.3e}: "
           f"block counts {gated.iters.flatten().tolist()} (plain {want_n.flatten().tolist()}), "
           f"max abs err {gate_err:.3e}")
-    check(err <= pin, f"edge {label}: K2 err {err} > {pin}")
-    check(all(same.values()), f"edge {label}: not bit-identical: {same}")
+    check(err <= pin, f"{label}: K2 err {err} > {pin}")
+    check(all(same.values()), f"{label}: not bit-identical: {same}")
     check(int((diff != 0).sum()) <= 1 and int(diff.abs().max()) <= CHECK_EVERY,
-          f"edge {label}: K3 block counts {gated.iters.tolist()} vs plain {want_n.tolist()}")
+          f"{label}: K3 block counts {gated.iters.tolist()} vs plain {want_n.tolist()}")
     check(counts[0] < iters == counts[-1],
-          f"edge {label}: the gate {tol} stopped no block early, or every block")
-    check(gate_err <= pin, f"edge {label}: gated K3 err {gate_err} > {pin}")
-    check(bool(fixed.iters.eq(iters).all()), f"edge {label}: tol=None counts differ")
+          f"{label}: the gate {tol} stopped no block early, or every block")
+    check(gate_err <= pin, f"{label}: gated K3 err {gate_err} > {pin}")
+    check(bool(fixed.iters.eq(iters).all()), f"{label}: tol=None counts differ")
+    return shape
+
+
+def multiclass_inputs(dev) -> SimpleNamespace:
+    """Run (d)'s draws, from their own generator, and its tuning: lam and lam_c as the
+    reference's ``benchmarks/fig_multiclass.py``, t as the binary quickstart's."""
+    from repro_torch.stats import synthetic
+
+    cfg = MULTICLASS
+    problem = synthetic.make_mc_problem(d=cfg.d, num_classes=cfg.num_classes,
+                                        n_signal=cfg.n_signal, rho=cfg.rho, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    xs, labels = synthetic.sample_mc_machines(gen, problem, cfg.m, cfg.n_per_machine,
+                                              device=dev)
+    zs, zl = synthetic.sample_mc_machines(gen, problem, 1, cfg.n_test, device=dev)
+    n, big_n = cfg.n_per_machine, cfg.m * cfg.n_per_machine
+    b1 = float(problem.betas.abs().sum(0).max())
+    lam = 0.3 * math.sqrt(math.log(cfg.d) / n) * b1
+    lams = torch.tensor([lam * 2.0 ** ((l - MC_L_GRID // 2) / (MC_L_GRID // 2))
+                         for l in range(MC_L_GRID)], dtype=torch.float32, device=dev)
+    return SimpleNamespace(problem=problem, xs=xs, labels=labels, z=zs[0], zl=zl[0], lam=lam,
+                           lam_c=0.3 * math.sqrt(math.log(cfg.d) / big_n) * b1,
+                           t=0.5 * math.sqrt(math.log(cfg.d) / big_n) * b1, lams=lams)
+
+
+def rounds_inputs(dev, problem) -> SimpleNamespace:
+    """Run (e)'s draws of the §5.1 problem over m = 80 machines, from their own
+    generator, and its tuning as the reference's ``benchmarks/fault_rounds.py``
+    (t as the quickstart's)."""
+    from repro_torch.stats import synthetic
+
+    cfg = ROUNDS
+    n = cfg.N // cfg.m
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    xs, ys = synthetic.sample_machines(gen, problem, cfg.m, n // 2, n // 2, device=dev)
+    b1 = float(problem.beta_star.abs().sum())
+    return SimpleNamespace(xs=xs, ys=ys, lam=0.3 * math.sqrt(math.log(cfg.d) / n) * b1,
+                           t=0.5 * math.sqrt(math.log(cfg.d) / cfg.N) * b1,
+                           mu1=xs.reshape(-1, cfg.d).mean(0), mu2=ys.reshape(-1, cfg.d).mean(0))
+
+
+def mc_rows(results: dict, problem, z, zl) -> dict:
+    """(F1, l2, accuracy) of each K-class estimate: results maps a name to (beta, means)."""
+    from repro_torch.core.classifier import estimation_errors, f1_score
+    from repro_torch.core.multiclass import mc_classify
+
+    return {name: (float(f1_score(beta, problem.betas)),
+                   float(estimation_errors(beta, problem.betas)["l2"]),
+                   float((mc_classify(z, beta, means) == zl).float().mean()))
+            for name, (beta, means) in results.items()}
+
+
+def hold_rows(tag: str, rows: dict, plain_rows: dict, l2_pin: float,
+              accuracy: bool = False) -> None:
+    """Print and check each row against the plain versions' row: F1 equal, the l2 error
+    within ``l2_pin``, and (``accuracy``) the accuracy equal."""
+    for name, row in rows.items():
+        want = plain_rows[name]
+        gap = abs(row[1] - want[1])
+        extra = f", accuracy {row[2]:.4f} vs {want[2]:.4f}" if accuracy else ""
+        print(f"  {name}: F1 {row[0]:.4f} vs {want[0]:.4f}, l2 {row[1]:.5f} (gap {gap:.3e})"
+              + extra)
+        check(row[0] == want[0], f"{tag} {name}: F1 differs from the plain versions")
+        check(gap <= l2_pin, f"{tag} {name}: l2 gap {gap} > {l2_pin}")
+        if accuracy:
+            check(row[2] == want[2], f"{tag} {name}: accuracy differs from the plain versions")
+
+
+def round_cases(ws) -> dict:
+    """Run (e)'s round schedules, all from the one set of machine solves ``ws``: the
+    (d,) aggregate of each, and the dense and identity-codec trajectories."""
+    from repro_torch.core.compression import Compression
+    from repro_torch.core.faults import Aggregation, FaultSchedule
+    from repro_torch.core.rounds import simulate_round_loop
+
+    d, T = ROUNDS.d, ROUNDS.rounds
+    dense = simulate_round_loop(ws, rounds=T, return_all_rounds=True)
+    ident = simulate_round_loop(ws, rounds=T, compression=Compression(d),
+                                return_all_rounds=True)
+    drop = FaultSchedule(dropout=ROUNDS.dropout, seed=SEED)
+    out = {f"dense T={t}": dense[t - 1, :, 0] for t in range(1, T + 1)}
+    out["identity codec T=3"] = ident[-1, :, 0]
+    out["top-20% int8 T=3"] = simulate_round_loop(
+        ws, rounds=T, compression=Compression(d // 5, "int8"))[:, 0]
+    out["10% dropout masked"] = simulate_round_loop(ws, rounds=T, faults=drop,
+                                                    aggregation=Aggregation())[:, 0]
+    out["10% dropout unmasked"] = simulate_round_loop(ws, rounds=T, faults=drop)[:, 0]
+    chaos = simulate_round_loop(ws, rounds=T, aggregation=Aggregation(),
+                                faults=FaultSchedule(corrupt=1.0, corrupt_mode="nan", seed=7))
+    return {"bars": out, "dense": dense, "identity": ident, "chaos": chaos}
 
 
 @contextlib.contextmanager
@@ -466,7 +623,17 @@ def main() -> None:
         simulated_naive_averaged_slda,
     )
     from repro_torch.core.clime import solve_clime_columns
+    from repro_torch.core.compression import Compression, dense_uplink_bits
+    from repro_torch.core.faults import Aggregation, FaultSchedule
+    from repro_torch.core.multiclass import (
+        centralized_mc_slda,
+        mc_debiased_local_path,
+        simulated_distributed_mc_slda,
+        simulated_naive_mc_slda,
+    )
+    from repro_torch.core.rounds import simulate_multi_round, simulate_round_loop
     from repro_torch.core.slda import centralized_slda, hard_threshold
+    from repro_torch.core.transport import CommPlan, Transport
     from repro_torch.core.solver_dispatch import solve_dantzig
     from repro_torch.kernels import _launch, build, ops, ref
     from repro_torch.kernels.dantzig_fused import (
@@ -505,6 +672,10 @@ def main() -> None:
     z, labels = synthetic.sample_labeled(gen, problem, N_TEST, device=dev)
     lam, lam_c, t = tuning(problem.beta_star, D, N_PER, M * N_PER)
     mu1_all, mu2_all = xs.reshape(-1, D).mean(0), ys.reshape(-1, D).mean(0)
+    # runs (d) and (e) draw from their own generators
+    mc = multiclass_inputs(dev)
+    rd = rounds_inputs(dev, problem)
+    K_MC, D_MC = MULTICLASS.num_classes, MULTICLASS.d
 
     # ---- 2. kernels against their plain versions ---------------------------
     errs = {}
@@ -785,6 +956,41 @@ def main() -> None:
     for label, d, k, m, iters, split in EDGE_SHAPES:
         edge_shape_checks(label, d, k, m, iters, split, edge_gen)
 
+    # the launch shapes runs (d) and (e) add, on their own statistics, at
+    # CHECK_ITERS iterations: the K2 and K3 templates with the card's
+    # occupancy, each kernel against its plain version across blockings and
+    # templates, K3 at tol=None, across a resume and with a gate
+    mc_hs = pipeline.MulticlassHead(K_MC).stats(mc.xs, mc.labels)
+    mc_fac = spectral_factor(mc_hs.sigma)
+    rd_stats = pipeline.suff_stats(rd.xs, rd.ys, use_kernel=False)
+    rd_fac = spectral_factor(rd_stats.sigma)
+    # (factor, b, lam per column) of each new launch shape; the fold is the
+    # lambda path's: grid point l owns columns [l K, (l + 1) K)
+    new_shapes = {
+        "multiclass k=5": (mc_fac, mc_hs.rhs, mc.lam),
+        "multiclass CLIME k=120": (mc_fac, torch.eye(D_MC, device=dev).expand(MULTICLASS.m, D_MC,
+                                                                             D_MC), mc.lam),
+        "multiclass fold k=40": (mc_fac, mc_hs.rhs.repeat(1, 1, MC_L_GRID),
+                                 mc.lams.repeat_interleave(K_MC)),
+        "rounds k=1 m=80": (rd_fac, rd_stats.mu_d.unsqueeze(-1), rd.lam),
+        "rounds CLIME m=80": (rd_fac, torch.eye(D, device=dev).expand(ROUNDS.m, D, D), rd.lam),
+    }
+    new_ops, new_info = {}, {}
+    for label, (fac, b, lam_v) in new_shapes.items():
+        b = b.contiguous()
+        m_, d_, k_ = b.shape
+        lam_cols = torch.as_tensor(lam_v, dtype=torch.float32, device=dev).expand(m_, k_)
+        new_ops[label] = (fac, b, lam_cols.contiguous())
+        k3_info = shape_checks(label, fac, b, lam_cols.contiguous(), torch.ones(m_, k_, device=dev),
+                               CHECK_ITERS, 2 * CHECK_ITERS // 5)
+        k2_info = launch_shape(m_, d_, k_, False)
+        new_info[label] = {"K2": k2_info, "K3": k3_info}
+        print(f"[kernels] {label} (m={m_}, d={d_}, k={k_}): K2 {json.dumps(k2_info)}, "
+              f"{m_ * -(-k_ // k2_info['block_k'])} clusters; K3 {json.dumps(k3_info)}, "
+              f"{m_ * -(-k_ // k3_info['block_k'])} clusters")
+        check(k2_info["cluster"] > 0 and k3_info["cluster"] > 0,
+              f"{label}: the model sends the shape to the streamed template")
+
     # ---- 3. the main path ---------------------------------------------------
     def estimators(cfg, use_kernel, times):
         out = {}
@@ -939,6 +1145,186 @@ def main() -> None:
           f"solve at lam_l: {fold_same}")
     check(all(fold_same), "lambda path: the tol=None fold differs from single K2 solves")
 
+    # ---- 3 (d). the multiclass design (configuration MULTICLASS) ----------------
+    tally = collections.Counter()  # K2/K3 launches of runs (d) and (e), by shape
+    mc_cfg = DantzigConfig(max_iters=MULTICLASS.max_iters, fused=True)
+    mc_plain_cfg = DantzigConfig(max_iters=MULTICLASS.max_iters, adapt_rho=False)
+
+    def mc_estimators(cfg, times):
+        out = {}
+        out["distributed (paper)"], times["distributed"] = sync_time(
+            lambda: simulated_distributed_mc_slda(mc.xs, mc.labels, K_MC, mc.lam, mc.lam, mc.t,
+                                                  cfg))
+        (cent, means), times["centralized"] = sync_time(lambda: centralized_mc_slda(
+            mc.xs.reshape(-1, D_MC), mc.labels.reshape(-1), K_MC, mc.lam_c, cfg))
+        out["centralized"] = (hard_threshold(cent, 0.5 * mc.t), means)
+        out["naive averaged"], times["naive"] = sync_time(
+            lambda: simulated_naive_mc_slda(mc.xs, mc.labels, K_MC, mc.lam, cfg))
+        return out
+
+    ops.reset_launches()
+    simulated_distributed_mc_slda(mc.xs, mc.labels, K_MC, mc.lam, mc.lam, mc.t, mc_cfg)
+    mc_dist_launches = dict(ops.LAUNCHES)
+    with shape_tally(tally):
+        ops.reset_launches()
+        mc_times = {}
+        mc_betas = mc_estimators(mc_cfg, mc_times)
+        mc_launches = dict(ops.LAUNCHES)
+    for name, n in mc_launches.items():
+        launches[name] += n
+    ops.reset_launches()
+    mc_plain_times = {}
+    mc_plain = mc_estimators(mc_plain_cfg, mc_plain_times)
+    check(not any(ops.LAUNCHES.values()), f"run (d): the plain path launched {ops.LAUNCHES}")
+    mc_table = mc_rows(mc_betas, mc.problem, mc.z, mc.zl)
+    print(f"[main (d)] multiclass, {MULTICLASS}, {mc_cfg}\n  lam {mc.lam:.4f}, lam_c "
+          f"{mc.lam_c:.4f}, t {mc.t:.4f}; launches: distributed alone {mc_dist_launches}, all "
+          f"three estimators {mc_launches}\n  wall seconds: kernel path {json.dumps(mc_times)}, "
+          f"plain path {json.dumps(mc_plain_times)}\n  against the plain versions on the card "
+          f"({mc_plain_cfg}):")
+    hold_rows("run (d)", mc_table, mc_rows(mc_plain, mc.problem, mc.z, mc.zl), 1e-4,
+              accuracy=True)
+    for name, (beta, means) in mc_betas.items():
+        check(beta.shape == (D_MC, K_MC) and means.shape == (K_MC, D_MC)
+              and bool(torch.isfinite(beta).all()),
+              f"run (d) {name}: shape {tuple(beta.shape)} or non-finite values")
+    check(mc_dist_launches["dantzig_fused"] == 2 and mc_dist_launches["dantzig_fused_state"] == 0,
+          f"run (d): distributed launched {mc_dist_launches}, not two K2")
+
+    # the multiclass lambda path: the K * L = 40 direction columns in one K3
+    # fold, cold and then warm from the cold sweep's states
+    mc_path_cfg = DantzigConfig(max_iters=MULTICLASS.max_iters, fused=True, adapt_rho=False,
+                                tol=PATH_TOL, check_every=CHECK_EVERY)
+
+    def mc_sweep(**warm):
+        return mc_debiased_local_path(mc.xs, mc.labels, K_MC, mc.lams, None, mc_path_cfg, **warm)
+
+    mc_sweeps, mc_sweep_s, mc_sweep_launches = {}, {}, {}
+    with shape_tally(tally):
+        for name, warm in (("cold", {}), ("warm", None)):
+            if warm is None:
+                warm = dict(rho_beta=mc_sweeps["cold"].rho_beta,
+                            state_beta=mc_sweeps["cold"].state_beta)
+            ops.reset_launches()
+            mc_sweeps[name], mc_sweep_s[name] = sync_time(lambda: mc_sweep(**warm))
+            mc_sweep_launches[name] = dict(ops.LAUNCHES)
+            for kernel, n in mc_sweep_launches[name].items():
+                launches[kernel] += n
+            check(mc_sweep_launches[name]["dantzig_fused_state"] == 2
+                  and mc_sweep_launches[name]["dantzig_fused"] == 0,
+                  f"run (d) lambda path {name}: launched {mc_sweep_launches[name]}, not two K3")
+    mc_iters = {name: int(r.iters.sum()) for name, r in mc_sweeps.items()}
+
+    def mc_grid_rows(result):
+        means = result.stats.aux.means.mean(0)
+        return mc_rows({f"l={l} lam={float(mc.lams[l]):.4f}": (
+            hard_threshold(result.beta_tilde[:, l].mean(0), mc.t), means)
+            for l in range(MC_L_GRID)}, mc.problem, mc.z, mc.zl)
+
+    ops.reset_launches()
+    with plain_state_kernel():
+        mc_plain_cold = mc_sweep()
+    check(not any(ops.LAUNCHES.values()),
+          f"run (d) lambda path: the plain-version sweep launched {ops.LAUNCHES}")
+    print(f"[main (d) lambda path] {mc_path_cfg}\n  grid lam * 2^((l-4)/4): {mc.lams.tolist()}\n"
+          f"  launches: cold {mc_sweep_launches['cold']}, warm {mc_sweep_launches['warm']}\n"
+          f"  fold iterations summed over machines, grid points and classes: cold "
+          f"{mc_iters['cold']}, warm {mc_iters['warm']} (plain cold {int(mc_plain_cold.iters.sum())})"
+          f"\n  wall seconds: cold {mc_sweep_s['cold']:.4f}, warm {mc_sweep_s['warm']:.4f}\n"
+          f"  the aggregate at each grid point against the plain versions:")
+    hold_rows("run (d) lambda path", mc_grid_rows(mc_sweeps["cold"]), mc_grid_rows(mc_plain_cold),
+              1e-3, accuracy=True)
+    check(mc_iters["warm"] < mc_iters["cold"],
+          f"run (d) lambda path: warm sweep ran {mc_iters['warm']} iterations, cold "
+          f"{mc_iters['cold']}")
+    for name, r in mc_sweeps.items():
+        check(r.beta_tilde.shape == (MULTICLASS.m, MC_L_GRID, D_MC, K_MC)
+              and bool(torch.isfinite(r.beta_tilde).all()),
+              f"run (d) lambda path {name}: shape {tuple(r.beta_tilde.shape)} or non-finite")
+
+    # ---- 3 (e). the refinement rounds (configuration ROUNDS) --------------------
+    T_RD = ROUNDS.rounds
+    rd_cfg = DantzigConfig(max_iters=ROUNDS.max_iters, fused=True)
+    rd_plain_cfg = DantzigConfig(max_iters=ROUNDS.max_iters, adapt_rho=False)
+    rd_tol_cfg = DantzigConfig(max_iters=ROUNDS.max_iters, fused=True, adapt_rho=False,
+                               tol=PATH_TOL, check_every=CHECK_EVERY)
+
+    def reentry(head, cfg, **warm):
+        return simulate_multi_round(head, (rd.xs, rd.ys), lam=rd.lam, lam_prime=rd.lam,
+                                    rounds=T_RD, cfg=cfg, collect_info=True, **warm)
+
+    rd_launch = {}
+    with shape_tally(tally):
+        ops.reset_launches()
+        (_, rd_ws), rd_solve_s = sync_time(lambda: simulate_multi_round(
+            pipeline.BinaryHead(), (rd.xs, rd.ys), lam=rd.lam, lam_prime=rd.lam, cfg=rd_cfg))
+        rd_launch["solves"] = dict(ops.LAUNCHES)
+        rd_cases, rd_loop_s = sync_time(lambda: round_cases(rd_ws))
+        reentries, reentry_s = {}, {}
+        for name in ("cold", "warm"):
+            warm = {} if name == "cold" else {
+                key: getattr(reentries["cold"][1], key)
+                for key in ("rho_beta", "rho_theta", "state_beta", "state_theta")}
+            ops.reset_launches()
+            reentries[name], reentry_s[name] = sync_time(
+                lambda: reentry(pipeline.BinaryHead(), rd_tol_cfg, **warm))
+            rd_launch[f"{name} re-entry"] = dict(ops.LAUNCHES)
+    for counts in rd_launch.values():
+        for kernel, n in counts.items():
+            launches[kernel] += n
+    ops.reset_launches()
+    _, rd_ws_plain = simulate_multi_round(pipeline.BinaryHead(use_kernel=False), (rd.xs, rd.ys),
+                                          lam=rd.lam, lam_prime=rd.lam, cfg=rd_plain_cfg)
+    rd_plain_cases = round_cases(rd_ws_plain)
+    with plain_state_kernel():
+        rd_plain_reentry = reentry(pipeline.BinaryHead(use_kernel=False), rd_tol_cfg)
+    check(not any(ops.LAUNCHES.values()), f"run (e): the plain path launched {ops.LAUNCHES}")
+
+    def rd_rows(bars):
+        return metrics({name: hard_threshold(bar, rd.t) for name, bar in bars.items()},
+                       problem.beta_star, z, labels, rd.mu1, rd.mu2)
+
+    d_rd = ROUNDS.d
+    one_shot = (rd_ws.beta_hat - rd_ws.theta.mT @ (rd_ws.stats.sigma @ rd_ws.beta_hat
+                                                     - rd_ws.stats.rhs)).mean(0)
+    up_bits = Transport(CommPlan(uplink=Compression(d_rd // 5, "int8")), d_rd, 1,
+                        T_RD).uplink_total_bits()
+    dense_bits = T_RD * dense_uplink_bits(d_rd, 1)
+    rd_iters = {name: (int(ws.iters_beta.sum()), int(ws.iters_theta.sum()))
+                for name, (_, ws) in reentries.items()}
+    print(f"[main (e)] refinement rounds, {ROUNDS}, {rd_cfg}\n  lam {rd.lam:.4f}, t {rd.t:.4f}; "
+          f"launches: {json.dumps(rd_launch)}\n  wall seconds: solves {rd_solve_s:.4f}, every "
+          f"round schedule {rd_loop_s:.4f}, re-entry {json.dumps(reentry_s)}\n"
+          f"  T = 1 equals the one-shot mean bit for bit: "
+          f"{torch.equal(rd_cases['dense'][0], one_shot)}; identity codec equals dense bit for "
+          f"bit: {torch.equal(rd_cases['identity'], rd_cases['dense'])}\n  top-20% int8 uplink "
+          f"bits over {T_RD} rounds {up_bits} of dense {dense_bits} ({up_bits / dense_bits:.4f})"
+          f"\n  chaos (every machine NaN every round, masked): finite "
+          f"{bool(torch.isfinite(rd_cases['chaos']).all())}\n  re-entry (tol {PATH_TOL}) "
+          f"executed iterations (direction, CLIME; per column): cold {rd_iters['cold']}, warm "
+          f"{rd_iters['warm']}\n  against the plain versions on the card ({rd_plain_cfg}):")
+    hold_rows("run (e)", rd_rows(rd_cases["bars"]), rd_rows(rd_plain_cases["bars"]), 1e-4)
+    print("  the tol-gated re-entry, cold, against the plain versions:")
+    hold_rows("run (e) re-entry", rd_rows({"cold re-entry T=3": reentries["cold"][0][:, 0]}),
+              rd_rows({"cold re-entry T=3": rd_plain_reentry[0][:, 0]}), 1e-3)
+    check(rd_launch["solves"]["dantzig_fused"] == 2 and rd_launch["solves"]["gram"] > 0,
+          f"run (e): the solves launched {rd_launch['solves']}, not two K2 and K1")
+    for name in ("cold re-entry", "warm re-entry"):
+        check(rd_launch[name]["dantzig_fused_state"] == 2 and rd_launch[name]["dantzig_fused"] == 0,
+              f"run (e) {name}: launched {rd_launch[name]}, not two K3")
+    check(torch.equal(rd_cases["dense"][0], one_shot),
+          "run (e): T = 1 differs from the one-shot mean")
+    check(torch.equal(rd_cases["identity"], rd_cases["dense"]),
+          "run (e): the identity codec differs from the dense rounds")
+    check(up_bits <= INT8_SHARE * dense_bits,
+          f"run (e): top-20% int8 moves {up_bits} bits, over {INT8_SHARE} of {dense_bits}")
+    check(bool(torch.isfinite(rd_cases["chaos"]).all()), "run (e): the chaos aggregate is not finite")
+    check(sum(rd_iters["warm"]) < sum(rd_iters["cold"]),
+          f"run (e): the warm re-entry ran {rd_iters['warm']} iterations, cold {rd_iters['cold']}")
+    for name, bar in rd_cases["bars"].items():
+        check(bar.shape == (d_rd,) and bool(torch.isfinite(bar).all()),
+              f"run (e) {name}: shape {tuple(bar.shape)} or non-finite values")
+
     # ---- 4. times -------------------------------------------------------------
     name_card = torch.cuda.get_device_name(0)
     xc = xs - mu1.unsqueeze(1)  # bmm's input: the centering is not in the library call
@@ -996,6 +1382,43 @@ def main() -> None:
         M * (n * D * (D + 1) + n * D), 4 * (M * n * D + M * D + M * D * D), "gram library bmm",
         library_ms=cuda_ms(lambda: torch.bmm(xc.mT, xc), 50))  # library: centering excluded
 
+    # each launch shape runs (d) and (e) add: time (back to back, device,
+    # host), its bound for this run's work, and its launches in those runs
+    def new_shape_row(label, state_io):
+        fac, b, lam_cols = new_ops[label]
+        m_, d_, k_ = b.shape
+        a_, q_, inv_ = fac.sigma.contiguous(), fac.q.contiguous(), fac.inv_eig.contiguous()
+        ones = torch.ones_like(lam_cols)
+        iters = MULTICLASS.max_iters if label.startswith("multiclass") else ROUNDS.max_iters
+        if state_io:
+            def fn():
+                return dantzig_fused_state_cuda(a_, q_, inv_, b, lam_cols, ones, None,
+                                                iters=iters, alpha=1.7, tol=PATH_TOL,
+                                                check_every=CHECK_EVERY)
+            info = new_info[label]["K3"]
+            work = state_kernel_work(fn().iters, k_, info["block_k"], iters, d=d_)
+        else:
+            def fn():
+                return dantzig_fused_cuda(a_, q_, inv_, b, lam_cols, ones, iters=iters,
+                                          alpha=1.7)
+            info = new_info[label]["K2"]
+            work = fixed_kernel_work(m_, d_, k_, iters)
+        bound_ms, bound_by = bound(*work)
+        reps = 2 if m_ > M else 3
+        name = "dantzig_fused_state" if state_io else "dantzig_fused"
+        return {"shape": [m_, d_, k_], "iters": iters, "ms": cuda_ms(fn, reps),
+                "bound_ms": bound_ms, "bound_by": bound_by, "launches": tally[(name, m_, d_, k_)],
+                "launch": info, **time_split(fn, reps, reps)}
+
+    def launched(kernel, label):
+        return tally[(kernel, *new_ops[label][1].shape)] > 0
+
+    k2_new = {label: new_shape_row(label, False) for label in new_ops
+              if launched("dantzig_fused", label)}
+    k3_new = {label: new_shape_row(label, True) for label in new_ops
+              if launched("dantzig_fused_state", label)}
+    print(f"[times] runs (d) and (e) launch shapes, K2: {json.dumps(k2_new)}\n  K3: "
+          f"{json.dumps(k3_new)}")
     k2_ms = cuda_ms(k2_clime, 3)
     k2_plain_ms = cuda_ms(lambda: ref.dantzig_fused_ref(
         stats.sigma, factor.q, factor.inv_eig, eye, lam, iters=ITERS, rho=1.0), 1)
@@ -1012,7 +1435,8 @@ def main() -> None:
         direction_k1={"ms": k2_dir_ms,
                       "bound_ms": bound(ITERS * M * (8 * D * D + 20 * D),
                                         4 * (2 * M * D * D + M * D + 4 * M * D + 2 * M))[0],
-                      "launch": launches_info["K2 k=1"], **splits["dantzig_fused k=1"]})
+                      "launch": launches_info["K2 k=1"], **splits["dantzig_fused k=1"]},
+        runs_d_e=k2_new)
 
     # K3's bound counts the iterations and residual checks this run's data needed
     def k3_clime_plain():
@@ -1033,7 +1457,8 @@ def main() -> None:
         "src/repro/kernels/dantzig_fused.py:222", k3_ms, k3_plain_ms, flops, nbytes,
         launch=launches_info["K3 CLIME"],
         direction_fold={"ms": fold_ms, "bound_ms": fold_bound, "launch": launches_info["K3 fold"],
-                        **splits["dantzig_fused_state fold"]})
+                        **splits["dantzig_fused_state fold"]},
+        runs_d_e=k3_new)
     sweep_ms = {name: cuda_ms(lambda: sweep(**warm_kw), 3) for name, warm_kw in (
         ("cold", {}), ("warm", dict(rho_beta=cold.rho_beta, state_beta=cold.state_beta)))}
     print(f"[times] K3 CLIME (m={M}, d={D}, k={D}, tol={PATH_TOL}, max {ITERS} iters): "
@@ -1096,6 +1521,37 @@ def main() -> None:
             (beta_hat - theta.mT @ (hs.sigma @ beta_hat - hs.rhs)).mean(0)[:, 0], t))
         print(f"[times] distributed ({run}) by stage, ms: "
               f"{json.dumps({k: round(1e3 * v, 3) for k, v in stages.items()})}")
+    # runs (d) and (e) layer by layer, each stage run to completion
+    stages = {}
+    hs, stages["mc_suff_stats"] = sync_time(lambda: pipeline.MulticlassHead(K_MC).stats(mc.xs,
+                                                                                        mc.labels))
+    fac, stages["eigh"] = sync_time(lambda: spectral_factor(hs.sigma))
+    beta_hat, stages["direction solve k=5"] = sync_time(
+        lambda: solve_dantzig(fac, hs.rhs, mc.lam, mc_cfg))
+    theta, stages["CLIME solve k=120"] = sync_time(
+        lambda: solve_clime_columns(fac, torch.arange(D_MC, device=dev), mc.lam, mc_cfg))
+    _, stages["debias + mean + HT"] = sync_time(lambda: hard_threshold(
+        (beta_hat - theta.mT @ (hs.sigma @ beta_hat - hs.rhs)).mean(0), mc.t))
+    mc_warm = dict(rho_beta=mc_sweeps["cold"].rho_beta, state_beta=mc_sweeps["cold"].state_beta)
+    mc_sweep_ms = {"cold": cuda_ms(mc_sweep, 2), "warm": cuda_ms(lambda: mc_sweep(**mc_warm), 2)}
+    print(f"[times] run (d) distributed by stage, ms: "
+          f"{json.dumps({k: round(1e3 * v, 3) for k, v in stages.items()})}; lambda-path sweeps "
+          f"by CUDA events, ms: {json.dumps(mc_sweep_ms)}")
+    stages = {}
+    hs, stages["suff_stats"] = sync_time(lambda: pipeline.BinaryHead().stats(rd.xs, rd.ys))
+    fac, stages["eigh"] = sync_time(lambda: spectral_factor(hs.sigma))
+    _, stages["direction solve k=1"] = sync_time(lambda: solve_dantzig(fac, hs.rhs, rd.lam, rd_cfg))
+    _, stages["CLIME solve k=200"] = sync_time(
+        lambda: solve_clime_columns(fac, torch.arange(D, device=dev), rd.lam, rd_cfg))
+    for label, kw in (("rounds loop dense T=3", {}),
+                      ("rounds loop top-20% int8 T=3", dict(compression=Compression(D // 5,
+                                                                                   "int8"))),
+                      ("rounds loop 10% dropout masked T=3", dict(
+                          faults=FaultSchedule(dropout=ROUNDS.dropout, seed=SEED),
+                          aggregation=Aggregation()))):
+        _, stages[label] = sync_time(lambda: simulate_round_loop(rd_ws, rounds=T_RD, **kw))
+    print(f"[times] run (e) by stage, ms: "
+          f"{json.dumps({k: round(1e3 * v, 3) for k, v in stages.items()})}")
     print(f"[times] distributed (b), {STAGE_REPS} runs of each K4 stage, host clock ms, and "
           f"the device's busy share of one profiled run: "
           f"{json.dumps({k: v for k, v in splits.items() if k.startswith('run (b)')})}")

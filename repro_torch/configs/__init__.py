@@ -1,4 +1,12 @@
-"""Experiment configs for the paper's own studies (twin of ``repro.configs``)."""
+"""Experiment configs for the paper's own studies (twin of ``repro.configs``) and the
+multiclass and refinement-round designs of the reference's benchmarks."""
+
+from repro_torch.configs.multiclass_rounds import (  # noqa: F401
+    MULTICLASS,
+    ROUNDS,
+    MulticlassConfig,
+    RoundsConfig,
+)
 
 from repro_torch.configs.paper_synthetic import (  # noqa: F401
     FIXED_N,

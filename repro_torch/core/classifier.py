@@ -5,6 +5,23 @@ from __future__ import annotations
 import torch
 
 
+def classify_scores(z: torch.Tensor, beta: torch.Tensor, mu: torch.Tensor,
+                    priors=None) -> torch.Tensor:
+    """Batched K-class discriminant scores: (B, d) queries -> (B, K).
+
+    ``score_k(Z) = (Z - mu_k / 2)^T beta_k + log pi_k``: one (B, d) @ (d, K)
+    product plus per-class offsets.  ``priors=None`` means equal priors
+    (a constant shift, dropped from the argmax).
+    """
+    proj = z @ beta  # (B, K)
+    offset = 0.5 * torch.sum(mu * beta.mT, dim=-1)  # (K,)
+    scores = proj - offset.unsqueeze(-2)
+    if priors is not None:
+        priors = torch.as_tensor(priors, dtype=scores.dtype, device=scores.device)
+        scores = scores + torch.log(priors).unsqueeze(-2)
+    return scores
+
+
 def fisher_rule(z: torch.Tensor, beta: torch.Tensor, mu1: torch.Tensor,
                 mu2: torch.Tensor) -> torch.Tensor:
     """psi(Z) = 1((Z - (mu1+mu2)/2)^T beta > 0); returns class index {0, 1}.

@@ -1,31 +1,24 @@
-"""Algorithm 1 simulated on one device, one shot (twin of the simulated faces of ``repro.core.distributed``).
+"""Algorithm 1 simulated on one device (twin of the simulated faces of ``repro.core.distributed``).
 
 Machines are the leading axis of ``xs`` (m, n1, d) and ``ys``
-(m, n2, d); every machine's solves run in one batch.  The reference
-routes even ``rounds=1`` through its refinement-round core; at T = 1
-that is exactly the machine mean of the one-shot debiased estimates,
-which is what this module computes.  More rounds and every comms
-option (compression, faults, staleness, aggregation, comm plans) come
-with a later slice of the port.
+(m, n2, d); every machine's solves run in one batch.  As in the
+reference, every face goes through the refinement-round core
+(:func:`repro_torch.core.rounds.simulate_multi_round`): ``rounds=1``
+with the default plan is the machine mean of the one-shot debiased
+estimates, bit for bit, and ``rounds``, ``compression``, ``faults``,
+``staleness``, ``aggregation`` and ``comm`` (a
+:class:`~repro_torch.core.transport.CommPlan`) configure the rounds
+and their wire.  The mesh faces come with a later slice of the port.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import pipeline, slda
+from repro_torch.core import rounds as rounds_core
+from repro_torch.core import slda
 from repro_torch.core.dantzig import DantzigConfig
 from repro_torch.core.pipeline import BinaryHead
-
-
-def _one_shot_only(rounds, compression, faults, staleness, aggregation, comm) -> None:
-    if rounds != 1:
-        raise NotImplementedError(
-            f"rounds={rounds}: refinement rounds come with the port's rounds slice")
-    if (compression, faults, aggregation, comm) != (None,) * 4 or staleness:
-        raise NotImplementedError(
-            "compression, faults, staleness, aggregation and comm plans come with "
-            "the port's transport slice")
 
 
 def simulated_debiased_mean(xs: torch.Tensor, ys: torch.Tensor, lam, lam_prime,
@@ -33,15 +26,17 @@ def simulated_debiased_mean(xs: torch.Tensor, ys: torch.Tensor, lam, lam_prime,
                             compression=None, faults=None, staleness: int = 0,
                             aggregation=None, comm=None, *,
                             use_kernel: bool | None = None) -> torch.Tensor:
-    """Mean of the machines' debiased estimates, before the hard threshold: (d,).
+    """Mean of the machines' debiased estimates after ``rounds`` rounds, before the hard
+    threshold: (d,).
 
     ``use_kernel`` picks the gram path of the statistics as in
     :func:`repro_torch.core.pipeline.suff_stats` (None: K1 on the card).
     """
-    _one_shot_only(rounds, compression, faults, staleness, aggregation, comm)
-    beta_tilde, _, _ = pipeline.worker_debiased(
-        BinaryHead(use_kernel), xs, ys, lam=lam, lam_prime=lam_prime, cfg=cfg)
-    return beta_tilde.mean(0)[:, 0]
+    beta_bar, _ = rounds_core.simulate_multi_round(
+        BinaryHead(use_kernel), (xs, ys), lam=lam, lam_prime=lam_prime, rounds=rounds,
+        cfg=cfg, comm=comm, compression=compression, faults=faults, staleness=staleness,
+        aggregation=aggregation)
+    return beta_bar[:, 0]
 
 
 def simulated_distributed_slda(xs: torch.Tensor, ys: torch.Tensor, lam, lam_prime, t,

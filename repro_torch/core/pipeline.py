@@ -6,6 +6,11 @@ correction -- written once.  Machines are the leading axis of every
 tensor: ``xs`` (m, n1, d) gives (m, d, d) statistics, one batched
 ``eigh`` and one launch per solve for all m machines.
 
+A head turns a machine batch's samples into ``HeadStats(sigma, rhs,
+aux)``: :class:`BinaryHead` (the paper's two-sample problem, K = 1)
+or :class:`MulticlassHead` (K classes sharing one covariance, all K
+directions in one batched solve).
+
 The mesh faces (``model_axis``) come with a later slice of the port
 and raise here.
 """
@@ -33,7 +38,7 @@ class HeadStats(NamedTuple):
 
     sigma: torch.Tensor  # (..., d, d) pooled within-class covariance
     rhs: torch.Tensor  # (..., d, K) direction right-hand sides
-    aux: Any  # head-specific stats (SuffStats)
+    aux: Any  # head-specific stats (SuffStats / MCStats)
 
 
 class SuffStats(NamedTuple):
@@ -83,6 +88,47 @@ class BinaryHead(NamedTuple):
     def stats(self, x: torch.Tensor, y: torch.Tensor) -> HeadStats:
         s = suff_stats(x, y, self.use_kernel)
         return HeadStats(s.sigma, s.mu_d.unsqueeze(-1), s)
+
+
+class MCStats(NamedTuple):
+    """Per-machine sufficient statistics of a K-class sample."""
+
+    sigma: torch.Tensor  # (..., d, d) pooled within-class covariance
+    means: torch.Tensor  # (..., K, d) class means
+    counts: torch.Tensor  # (..., K)
+
+
+def mc_suff_stats(x: torch.Tensor, labels: torch.Tensor, num_classes: int) -> MCStats:
+    """x: (..., n, d), labels: (..., n) in [0, K) -> pooled stats.
+
+    Class sums through the one-hot product, as the reference computes
+    them (static shapes, no sort); each sample is centred on its own
+    class mean by a gather, and the pooled scatter is one product.
+    """
+    n = x.shape[-2]
+    labels = labels.long()
+    onehot = torch.nn.functional.one_hot(labels, num_classes).to(x.dtype)  # (..., n, K)
+    counts = onehot.sum(-2)  # (..., K)
+    means = (onehot.mT @ x) / counts.clamp_min(1.0).unsqueeze(-1)  # (..., K, d)
+    own = torch.take_along_dim(means, labels.unsqueeze(-1), dim=-2)  # (..., n, d)
+    centered = x - own
+    return MCStats(centered.mT @ centered / n, means, counts)
+
+
+def mc_direction_rhs(stats: MCStats) -> torch.Tensor:
+    """(..., d, K) Dantzig right-hand sides ``mu_k - mu_bar`` (shared mu_bar)."""
+    mu_bar = stats.means.mean(-2, keepdim=True)
+    return (stats.means - mu_bar).mT
+
+
+class MulticlassHead(NamedTuple):
+    """K-class shared-covariance head: rhs[:, k] = mu_k - mu_bar."""
+
+    num_classes: int
+
+    def stats(self, x: torch.Tensor, labels: torch.Tensor) -> HeadStats:
+        s = mc_suff_stats(x, labels, self.num_classes)
+        return HeadStats(s.sigma, mc_direction_rhs(s), s)
 
 
 def debias(sigma: torch.Tensor, rhs: torch.Tensor, beta_hat: torch.Tensor,

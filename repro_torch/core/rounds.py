@@ -1,0 +1,319 @@
+"""Multi-round refinement around the master's aggregate (twin of ``repro.core.rounds``, simulated).
+
+With anchor_1 = beta_hat (each machine's local estimate), every round
+t = 1..T is the same closed-form map
+
+    beta_tilde_t^i = anchor_t^i - Theta_i^T (Sigma_i anchor_t^i - rhs_i)
+    beta_bar_t     = mean_i beta_tilde_t^i
+    anchor_{t+1}^i = beta_bar_t
+
+so T = 1 is the paper's one-shot estimator, bit for bit (the same
+products as :func:`repro_torch.core.pipeline.worker_debiased` and the
+same machine mean).  A round reuses the machines' one factorization and
+both solves (:class:`~repro_torch.core.pipeline.WorkerSolves`): two
+(d, d) x (d, K) products per machine, no eigendecomposition, no ADMM.
+
+The round body is written once, :func:`_refinement_rounds`;
+:class:`_SimRound` supplies the machine-axis operations, as the
+reference's vmap twin does.  It threads the uplink/downlink codecs,
+fault injection, screening, masked and trimmed aggregation, bounded
+staleness and the last-good fallback of
+:mod:`repro_torch.core.compression`, :mod:`repro_torch.core.faults`
+and :mod:`repro_torch.core.transport`.  Every tensor stays on the
+device of the solves.
+
+``collect_info=True`` runs both solves through the full dispatched
+result, so the returned solves carry warm rho, ADMM states and
+executed iterations; passing them back resumes each solve (K3 with
+``cfg.tol``).  The mesh twin (``_MeshRound``, ``worker_rounds``)
+comes with the port's mesh slice.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.core import compression as compression_core
+from repro_torch.core import faults as faults_core
+from repro_torch.core import pipeline
+from repro_torch.core.compression import Compression
+from repro_torch.core.dantzig import DantzigConfig
+from repro_torch.core.faults import Aggregation, FaultPlan, FaultSchedule
+from repro_torch.core.pipeline import WorkerSolves
+from repro_torch.core.transport import CommPlan, Transport, TransportState, resolve_comm
+from repro_torch.kernels.dantzig_fused import AdmmState
+
+
+def refine_step(ws: WorkerSolves, anchor: torch.Tensor) -> torch.Tensor:
+    """Every machine's closed-form debias correction around ``anchor`` (..., d, K):
+    ``anchor - Theta^T (Sigma anchor - rhs)``."""
+    resid = ws.stats.sigma @ anchor - ws.stats.rhs
+    return anchor - pipeline.apply_correction(ws.theta, ws.valid, resid)
+
+
+class _SimRound:
+    """Machines are the leading axis; the round's reductions are local."""
+
+    def __init__(self, ws: WorkerSolves):
+        self.ws = ws
+        self.m = ws.beta_hat.shape[0]
+
+    def correction(self, anchor):
+        return refine_step(self.ws, anchor)
+
+    def mean(self, x):
+        return x.mean(0)  # the round's one "pmean"
+
+    def sum(self, x):
+        return x.sum(0)
+
+    def stack(self, x):
+        return x  # the machine axis is already there
+
+    def expand(self, w):
+        return w.reshape(w.shape + (1, 1))
+
+    def corrupt(self, code, block):
+        return faults_core.corrupt_block(code, block)
+
+    def screen(self, agg, block):
+        return faults_core.screen_weight(agg, block)
+
+    def broadcast(self, bar):
+        return bar.expand(self.m, *bar.shape)
+
+    def agg_zeros(self, anchor):
+        return torch.zeros(anchor.shape[1:], dtype=anchor.dtype, device=anchor.device)
+
+    def ef(self, comp, message, resid, ref):
+        return compression_core.ef_step(comp, message, resid, ref)
+
+    def corrupt_payload(self, comp, code, payload):
+        return faults_core.corrupt_payload(comp, code, payload)
+
+    def sparse_mean(self, comp, payload, ref):
+        return compression_core.decode_mean(comp, payload, ref)
+
+    def stack_payload(self, comp, payload):
+        return payload
+
+    def downlink_wire(self, comp, payload, code):
+        """Machine 0 is the aggregator: its fault row corrupts the wire."""
+        if code is not None:
+            payload = faults_core.corrupt_payload(comp, code[0], payload)
+        return payload
+
+
+def _refinement_rounds(drv, *, rounds: int, anchor: torch.Tensor, transport: Transport,
+                       plan: FaultPlan | None = None, state: TransportState | None = None,
+                       ref: torch.Tensor | None = None, return_all_rounds: bool = False):
+    """The one T-round body.
+
+    With a default plan (no codecs, no faults, no aggregation) a round
+    is exactly the machine mean of the corrections.  ``ref`` seeds the
+    shared delta reference on re-entry (None: zeros, round 1).  The
+    downlink close: the aggregator EF-encodes the aggregate against
+    ``ref``, the payload crosses the wire (where corruption can hit
+    it), and every machine screens the same decoded block; a poisoned
+    round rolls every machine back to ``ref`` and drops the
+    aggregator's residual.
+
+    Returns ``(bar or the (T, d, K) trajectory, final TransportState)``.
+    """
+    aggregation = transport.aggregation
+    staleness = transport.staleness
+    masked = aggregation is not None
+    faulted = plan is not None
+    if masked:
+        aggregation.validate()
+        last_good = drv.agg_zeros(anchor)
+    resid = state.up_residual if state is not None else None
+    down_resid = state.down_residual if state is not None else None
+    if transport.any_up and resid is None:
+        resid = torch.zeros_like(anchor)
+    if transport.any_down and down_resid is None:
+        down_resid = drv.agg_zeros(anchor)
+    if (transport.any_up or transport.any_down) and ref is None:
+        ref = drv.agg_zeros(anchor)
+    history = [anchor]  # entry j-1 = the round-j anchor
+    bars = []
+    for t in range(1, rounds + 1):
+        compression = transport.up(t).comp
+        live = code = None
+        if faulted:
+            live, stale, code = plan.row(t)
+        a = history[-1]
+        if faulted and staleness > 0 and t > 1:
+            a = faults_core.select_anchor(history, stale, t, staleness)
+        beta_tilde = drv.correction(a)
+        if compression is None:
+            wire = drv.corrupt(code, beta_tilde) if faulted else beta_tilde
+            if not masked and not faulted:
+                bar = drv.mean(wire)  # the one-shot round, bit for bit
+            elif not masked:
+                # the fragile baseline: a dropped machine adds zeros, the
+                # divisor stays m, corrupt payloads reach the mean
+                bar = drv.mean(torch.where(drv.expand(live) > 0, wire, 0.0))
+            else:
+                w = drv.screen(aggregation, wire)
+                if faulted:
+                    w = live * w
+                if aggregation.trim > 0:
+                    bar, den = faults_core.trimmed_mean(drv.stack(wire), drv.stack(w),
+                                                        aggregation.trim)
+                else:
+                    # select, never multiply: 0 * NaN would re-poison the sum
+                    num = drv.sum(torch.where(drv.expand(w) > 0, wire, 0.0))
+                    den = drv.sum(w)
+                    bar = num / den.clamp_min(1.0)
+                bar = torch.where(den > 0, bar, last_good)
+        else:
+            payload, new_resid = drv.ef(compression, beta_tilde, resid, ref)
+            if faulted:
+                # a dropped machine computed nothing: its carry is untouched;
+                # corruption hits the wire, after the honest residual update
+                resid = torch.where(drv.expand(live) > 0, new_resid, resid)
+                payload = drv.corrupt_payload(compression, code, payload)
+            else:
+                resid = new_resid
+            if not masked and not faulted:
+                bar = drv.sparse_mean(compression, payload, ref)
+            else:
+                stacked = drv.stack_payload(compression, payload)
+                w_live = drv.stack(live) if faulted else None
+                if masked:
+                    # decode raw: the screen must see the poison to zero the machine
+                    dense = compression_core.decode_stack(compression, stacked, ref,
+                                                          screen_nonfinite=False)
+                    w = faults_core.screen_weight(aggregation, dense)
+                    if w_live is not None:
+                        w = w_live * w
+                    if aggregation.trim > 0:
+                        bar, den = faults_core.trimmed_mean(dense, w, aggregation.trim)
+                    else:
+                        bar, den = faults_core.masked_mean(dense, w)
+                    bar = torch.where(den > 0, bar, last_good)
+                else:
+                    # fragile baseline: a dropped machine's payload decodes to the
+                    # reference, still diluting the mean by the full m
+                    dense = compression_core.decode_stack(compression, stacked, ref)
+                    keep = (w_live > 0).reshape(w_live.shape + (1, 1))
+                    bar = torch.where(keep, dense, ref).mean(0)
+        # the downlink close: the aggregate back down the wire, EF-compressed
+        # against the same reference
+        down = transport.down(t)
+        if down.compressed:
+            u = bar + down_resid
+            payload = down.encode(u, ref)
+            wire = drv.downlink_wire(down.comp, payload, code)
+            decoded = down.decode(wire, ref, screen_nonfinite=False)
+            ok = torch.isfinite(decoded).all()
+            honest = down.decode(payload, ref, screen_nonfinite=False)
+            # rejected: drop the carry, the rolled-back anchors regenerate the step
+            down_resid = torch.where(ok, u - honest, torch.zeros_like(u))
+            bar = torch.where(ok, decoded, ref)
+        if transport.any_up or transport.any_down:
+            ref = bar  # the received aggregate seeds both wires' deltas
+        if masked:
+            last_good = bar
+        bars.append(bar)
+        history.append(drv.broadcast(bar))
+    out = torch.stack(bars) if return_all_rounds else bars[-1]
+    return out, TransportState(resid if transport.any_up else None,
+                               down_resid if transport.any_down else None)
+
+
+def _check_plan(faults, expect_shape, where: str) -> None:
+    if faults is None:
+        return
+    if isinstance(faults, FaultSchedule):
+        raise TypeError(
+            f"{where} takes a materialized FaultPlan (FaultSchedule.plan(m, rounds, "
+            "staleness)); got a schedule")
+    if tuple(faults.live.shape) != tuple(expect_shape):
+        raise ValueError(f"{where}: FaultPlan leaves must be {tuple(expect_shape)}, got "
+                         f"{tuple(faults.live.shape)}")
+
+
+def simulate_round_loop(ws: WorkerSolves, *, rounds: int, comm: CommPlan | None = None,
+                        compression: Compression | None = None,
+                        ef_residual: torch.Tensor | None = None,
+                        down_residual: torch.Tensor | None = None,
+                        resume_from: torch.Tensor | None = None,
+                        faults: FaultPlan | FaultSchedule | None = None, staleness: int = 0,
+                        aggregation: Aggregation | None = None,
+                        return_all_rounds: bool = False, return_ef_residual: bool = False,
+                        return_transport_state: bool = False):
+    """The T refinement rounds alone, on machine-stacked solves ``ws``.
+
+    One set of per-machine solves (the expensive part) drives any
+    number of round schedules.  ``comm`` is the one
+    :class:`~repro_torch.core.transport.CommPlan` (its fault schedule is
+    materialized here against m); the separate ``compression`` /
+    ``faults`` / ``staleness`` / ``aggregation`` arguments pack into
+    one, and ``faults`` also takes a materialized
+    :class:`~repro_torch.core.faults.FaultPlan` ((m, rounds) leaves).
+    ``resume_from`` re-enters a round stream: it seeds the round-1
+    anchor and the shared delta reference with the previous received
+    aggregate.
+
+    Returns ``beta_bar`` (d, K), or the (rounds, d, K) trajectory with
+    ``return_all_rounds``; ``return_ef_residual`` appends the final
+    (m, d, K) uplink residual and ``return_transport_state`` the
+    :class:`~repro_torch.core.transport.TransportState`.
+    """
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    drv = _SimRound(ws)
+    if comm is not None and isinstance(faults, FaultSchedule):
+        raise TypeError(
+            "simulate_round_loop: pass the fault schedule inside comm=CommPlan(faults=...), "
+            "not alongside it (a materialized FaultPlan may ride next to comm)")
+    comm = resolve_comm(comm, compression=compression, staleness=staleness,
+                        aggregation=aggregation, where="simulate_round_loop")
+    plan = faults if faults is not None else comm.faults
+    if isinstance(plan, FaultSchedule):
+        plan = plan.plan(drv.m, rounds, max(comm.staleness, 1), device=ws.beta_hat.device)
+    _check_plan(plan, (drv.m, rounds), "simulate_round_loop")
+    anchor = ws.beta_hat if resume_from is None else drv.broadcast(resume_from)
+    tr = Transport(comm, anchor.shape[1], anchor.shape[2], rounds)
+    out, tstate = _refinement_rounds(drv, rounds=rounds, anchor=anchor, transport=tr,
+                                     plan=plan, state=TransportState(ef_residual, down_residual),
+                                     ref=resume_from, return_all_rounds=return_all_rounds)
+    res = [out]
+    if return_ef_residual:
+        res.append(tstate.up_residual)
+    if return_transport_state:
+        res.append(tstate)
+    return tuple(res) if len(res) > 1 else out
+
+
+def simulate_multi_round(head, data: Sequence[torch.Tensor], *, lam, lam_prime,
+                         rounds: int = 1, cfg: DantzigConfig = DantzigConfig(),
+                         comm: CommPlan | None = None, compression: Compression | None = None,
+                         ef_residual: torch.Tensor | None = None,
+                         faults: FaultPlan | FaultSchedule | None = None, staleness: int = 0,
+                         aggregation: Aggregation | None = None, rho_beta=None, rho_theta=None,
+                         state_beta: AdmmState | None = None,
+                         state_theta: AdmmState | None = None, collect_info: bool = False,
+                         return_all_rounds: bool = False) -> tuple[torch.Tensor, WorkerSolves]:
+    """The machines' solves (one batch, one ``eigh``), then :func:`simulate_round_loop`.
+
+    ``data`` holds the head's samples with machines on the leading axis
+    (``(xs, ys)`` for the binary head, ``(xs, labels)`` for the K-class
+    one).  Warm carries are the (m, ...) fields of a previous call's
+    returned :class:`~repro_torch.core.pipeline.WorkerSolves`
+    (``collect_info=True`` fills them).  Returns ``(beta_bar, solves)``
+    with ``beta_bar`` (d, K), or (rounds, d, K) with ``return_all_rounds``.
+    """
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    ws = pipeline.worker_solves(head, *data, lam=lam, lam_prime=lam_prime, cfg=cfg,
+                                rho_beta=rho_beta, rho_theta=rho_theta, state_beta=state_beta,
+                                state_theta=state_theta, full=collect_info)
+    out = simulate_round_loop(ws, rounds=rounds, comm=comm, compression=compression,
+                              ef_residual=ef_residual, faults=faults, staleness=staleness,
+                              aggregation=aggregation, return_all_rounds=return_all_rounds)
+    return out, ws

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import path, pipeline
+from repro_torch.core import rounds as _rounds
 from repro_torch.core.dantzig import DantzigConfig
 from repro_torch.core.pipeline import BinaryHead, SuffStats, suff_stats  # noqa: F401
 from repro_torch.core.solver_dispatch import solve_dantzig
@@ -79,6 +80,22 @@ def tune_lambda_validation(result: path.WorkerPathResult, z_val: torch.Tensor,
     pred = torch.where(scores > 0, 0, 1)
     errors = (pred != labels_val.unsqueeze(-1)).to(torch.float32).mean(-2)
     return errors.argmin(-1), errors
+
+
+def multi_round_slda(xs: torch.Tensor, ys: torch.Tensor, lam, lam_prime, t, rounds: int = 3,
+                     cfg: DantzigConfig = DantzigConfig(), compression=None, faults=None,
+                     staleness: int = 0, aggregation=None, comm=None) -> torch.Tensor:
+    """The T-round refined estimator: xs (m, n1, d), ys (m, n2, d) -> beta_bar (d,).
+
+    ``rounds`` rounds share one set of machine solves (``rounds=1`` is
+    the one-shot aggregate); ``comm`` and the separate comms arguments
+    as in :func:`repro_torch.core.rounds.simulate_round_loop`.
+    """
+    beta_bar, _ = _rounds.simulate_multi_round(
+        BinaryHead(), (xs, ys), lam=lam, lam_prime=lam_prime, rounds=rounds, cfg=cfg,
+        comm=comm, compression=compression, faults=faults, staleness=staleness,
+        aggregation=aggregation)
+    return hard_threshold(beta_bar[:, 0], t)
 
 
 def hard_threshold(beta: torch.Tensor, t) -> torch.Tensor:

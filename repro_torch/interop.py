@@ -6,7 +6,11 @@ them into the port's tensors and types, so both packages compute from
 exactly the same inputs.  The system has no weights: its parameters
 are the problem, the spectral factor, the ADMM state and the solver
 configuration; a lambda sweep carries its per-grid-point results and
-states on a leading L axis (:func:`path_result_from_numpy`).
+states on a leading L axis (:func:`path_result_from_numpy`).  The
+comms configs come across as ``_asdict()`` mappings (nested configs as
+mappings or as the reference's own NamedTuples) and a materialized
+fault plan as its three arrays, so a rounds test feeds both packages
+the same plan.
 """
 
 from __future__ import annotations
@@ -16,12 +20,15 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.compression import Compression
 from repro_torch.core.dantzig import DantzigConfig
+from repro_torch.core.faults import Aggregation, FaultPlan, FaultSchedule
 from repro_torch.core.path import PathResult
+from repro_torch.core.transport import BitBudget, CommPlan
 from repro_torch.device import require_device
 from repro_torch.kernels.dantzig_fused import AdmmState
 from repro_torch.kernels.spectral import SpectralFactor
-from repro_torch.stats.synthetic import LDAProblem
+from repro_torch.stats.synthetic import LDAProblem, MCProblem
 
 
 def tensor(a, device: str | torch.device = "cuda", dtype=torch.float32) -> torch.Tensor:
@@ -32,6 +39,17 @@ def tensor(a, device: str | torch.device = "cuda", dtype=torch.float32) -> torch
 def problem_from_numpy(fields: Mapping, device: str | torch.device = "cuda") -> LDAProblem:
     """The reference's ``LDAProblem`` fields (a mapping of arrays) as the port's problem."""
     return LDAProblem(*(tensor(fields[name], device) for name in LDAProblem._fields))
+
+
+def mc_problem_from_numpy(fields: Mapping, device: str | torch.device = "cuda") -> MCProblem:
+    """The reference's ``MCProblem`` fields (a mapping of arrays) as the port's problem."""
+    return MCProblem(*(tensor(fields[name], device) for name in MCProblem._fields))
+
+
+def fault_plan_from_numpy(live, stale, corrupt, device: str | torch.device = "cuda") -> FaultPlan:
+    """A materialized reference ``FaultPlan`` (live, stale, corrupt) as the port's."""
+    return FaultPlan(tensor(live, device), tensor(stale, device, dtype=torch.int32),
+                     tensor(corrupt, device, dtype=torch.int32))
 
 
 def factor_from_numpy(sigma, q, evals, device: str | torch.device = "cuda") -> SpectralFactor:
@@ -60,9 +78,40 @@ def path_result_from_numpy(fields: Mapping, device: str | torch.device = "cuda")
         iters=tensor(fields["iters"], device, dtype=torch.int32))
 
 
+def _config(cls, fields):
+    """``cls`` from a mapping, or from a NamedTuple through its ``_asdict()``; None stays None."""
+    if fields is None:
+        return None
+    if not isinstance(fields, Mapping):
+        fields = fields._asdict()
+    unknown = set(fields) - set(cls._fields)
+    if unknown:
+        raise ValueError(f"fields the port's {cls.__name__} does not have: {sorted(unknown)}")
+    return cls(**fields)
+
+
 def dantzig_config_from_dict(fields: Mapping) -> DantzigConfig:
     """A reference ``DantzigConfig._asdict()`` as the port's config (same fields)."""
-    unknown = set(fields) - set(DantzigConfig._fields)
-    if unknown:
-        raise ValueError(f"fields the port's DantzigConfig does not have: {sorted(unknown)}")
-    return DantzigConfig(**fields)
+    return _config(DantzigConfig, fields)
+
+
+def compression_from_dict(fields: Mapping) -> Compression:
+    """A reference ``Compression._asdict()`` as the port's codec."""
+    return _config(Compression, fields)
+
+
+def bit_budget_from_dict(fields: Mapping) -> BitBudget:
+    """A reference ``BitBudget._asdict()`` as the port's schedule (``weights`` as a tuple)."""
+    budget = _config(BitBudget, fields)
+    weights = None if budget.weights is None else tuple(budget.weights)
+    return budget._replace(weights=weights)
+
+
+def comm_plan_from_dict(fields: Mapping) -> CommPlan:
+    """A reference ``CommPlan._asdict()`` as the port's plan, its nested configs converted."""
+    plan = _config(CommPlan, fields)
+    return plan._replace(
+        uplink=_config(Compression, plan.uplink), downlink=_config(Compression, plan.downlink),
+        schedule=None if plan.schedule is None else bit_budget_from_dict(plan.schedule),
+        faults=_config(FaultSchedule, plan.faults),
+        aggregation=_config(Aggregation, plan.aggregation))

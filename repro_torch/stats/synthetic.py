@@ -1,4 +1,4 @@
-"""Synthetic two-class Gaussian generators (paper §5.1), twin of ``repro.stats.synthetic``.
+"""Synthetic Gaussian generators (paper §5.1 and its K-class extension), twin of ``repro.stats.synthetic``.
 
 The paper's synthetic design: d = 200, Sigma*_jk = 0.8^{|j-k|} (AR(1)),
 mu1 = 0, mu2 = (1,...,1,0,...,0) with 10 ones; beta* = Theta* mu_d has
@@ -104,3 +104,55 @@ def sample_labeled(
     noise = torch.randn(n, d, generator=gen, device=dev) @ problem.chol.T
     mus = torch.where(labels[:, None] == 0, problem.mu1[None, :], problem.mu2[None, :])
     return mus + noise, labels
+
+
+class MCProblem(NamedTuple):
+    sigma: torch.Tensor
+    theta: torch.Tensor
+    means: torch.Tensor  # (K, d)
+    betas: torch.Tensor  # (d, K) Theta (mu_k - mu_bar)
+    chol: torch.Tensor
+
+
+def make_mc_problem(
+    d: int = 120, num_classes: int = 4, n_signal: int = 6, rho: float = 0.8,
+    signal: float = 1.2, *, device: str | torch.device = "cuda",
+) -> MCProblem:
+    """K classes on disjoint mean supports, shared AR(1) covariance (numpy f64, cast to f32)."""
+    dev = require_device(device)
+    sigma = ar1_covariance(d, rho)
+    theta = np.linalg.inv(sigma)
+    means = np.zeros((num_classes, d))
+    for k in range(num_classes):
+        start = k * n_signal
+        means[k, start:start + n_signal] = signal
+    mu_bar = means.mean(axis=0)
+    betas = theta @ (means - mu_bar).T  # (d, K)
+    betas[np.abs(betas) < 1e-10] = 0.0
+    chol = np.linalg.cholesky(sigma)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    return MCProblem(f32(sigma), f32(theta), f32(means), f32(betas), f32(chol))
+
+
+def sample_mc_machines(
+    gen: torch.Generator, problem: MCProblem, m: int, n_per_machine: int,
+    class_probs=None, *, device: str | torch.device = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-machine draws: xs (m, n, d), labels (m, n) int64.
+
+    ``class_probs=None`` draws balanced labels (uniform over classes);
+    a (K,) probability vector draws imbalanced ones.
+    """
+    dev = _on(problem, device)
+    num_classes, d = problem.means.shape
+    if class_probs is None:
+        labels = torch.randint(0, num_classes, (m, n_per_machine), generator=gen, device=dev)
+    else:
+        p = torch.as_tensor(class_probs, dtype=torch.float32, device=dev)
+        labels = torch.multinomial(p, m * n_per_machine, replacement=True,
+                                   generator=gen).reshape(m, n_per_machine)
+    noise = torch.randn(m, n_per_machine, d, generator=gen, device=dev) @ problem.chol.T
+    return problem.means[labels] + noise, labels

@@ -1,6 +1,8 @@
 """Structural guards of the port: no JAX, no reference imports, no silent CPU default."""
 
 import ast
+import importlib
+import inspect
 import os
 import subprocess
 import sys
@@ -60,6 +62,46 @@ def test_entry_points_default_to_the_card(monkeypatch):
         synthetic.make_problem(d=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quickstart.main()
+
+
+SLICE_MODULES = ["repro_torch.core.multiclass", "repro_torch.core.compression",
+                 "repro_torch.core.faults", "repro_torch.core.transport",
+                 "repro_torch.core.rounds"]
+
+
+@pytest.mark.parametrize("name", SLICE_MODULES)
+def test_multiclass_and_rounds_modules_stand_alone_and_default_to_the_card(name):
+    # each new module is one of the guarded files, and every function or
+    # method of it that takes a device takes "cuda" unless told otherwise
+    module = importlib.import_module(name)
+    path = Path(module.__file__).resolve()
+    assert path in PORT_FILES
+    assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    members = [obj for _, obj in inspect.getmembers(module)
+               if getattr(obj, "__module__", None) == name]
+    funcs = [f for obj in members
+             for f in ([obj] if inspect.isfunction(obj) else
+                       [v for v in vars(obj).values() if inspect.isfunction(v)]
+                       if inspect.isclass(obj) else [])]
+    assert funcs
+    for f in funcs:
+        param = inspect.signature(f).parameters.get("device")
+        if param is not None:
+            assert param.default == "cuda", f"{name}.{f.__qualname__}"
+
+
+def test_multiclass_and_fault_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.core.faults import FaultSchedule
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthetic.make_mc_problem(d=8)
+    problem = synthetic.make_mc_problem(d=8, num_classes=2, n_signal=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthetic.sample_mc_machines(torch.Generator(), problem, 2, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FaultSchedule(dropout=0.1).plan(3, 2)
+    assert FaultSchedule(dropout=0.1).plan(3, 2, device="cpu").live.shape == (3, 2)
 
 
 def test_samplers_draw_on_the_requested_device():

@@ -25,6 +25,7 @@ from repro_torch import interop
 from repro_torch.core import path, pipeline, slda
 from repro_torch.core.solver_dispatch import solve_dantzig
 from repro_torch.kernels.dantzig_fused import AdmmState
+from test_torch_parity import UlpHead, assert_parity, reference_spread
 
 D, M, N_PER = 24, 3, 200
 LAMS = np.geomspace(0.1, 0.4, 4).astype(np.float32)
@@ -275,14 +276,21 @@ def test_selection_matches_reference_per_machine():
     for i in range(M):
         jres = jax_slda.debiased_local_estimator_path(jnp.asarray(xs[i]), jnp.asarray(ys[i]),
                                                       jnp.asarray(LAMS), cfg=jcfg)
-        _close(res.beta_tilde[i], jres.beta_tilde)
+        np.testing.assert_array_equal(res.iters[i].numpy(), np.asarray(jres.iters))
+        # the pin: 1e-5 of the largest entry, or twice the reference's own
+        # spread when its Sigma_hat moves by one ulp (lam_prime: the grid's middle)
+        spread = reference_spread(lambda s: jax_path.worker_debiased_path(
+            UlpHead(JaxBinaryHead(), s), jnp.asarray(xs[i]), jnp.asarray(ys[i]),
+            lams=jnp.asarray(LAMS), lam_prime=jnp.asarray(LAMS)[len(LAMS) // 2],
+            cfg=jcfg).beta_tilde, jres.beta_tilde)
+        assert_parity(res.beta_tilde[i], jres.beta_tilde, spread)
         jidx, jerrors = jax_slda.tune_lambda_validation(jres, jnp.asarray(z),
                                                         jnp.asarray(labels))
         np.testing.assert_allclose(errors[i].numpy(), np.asarray(jerrors), atol=1e-7)
         assert int(idx[i]) == int(jidx)
         assert int(kkt_idx[i]) == int(jax_path.select_by_kkt(jres, tol=1e-3))
         want = jax_path.take_lambda(jres.beta_tilde, jidx)
-        _close(path.take_lambda(res.beta_tilde, idx)[i], want)
+        assert_parity(path.take_lambda(res.beta_tilde, idx)[i], want, spread)
 
 
 @pytest.mark.parametrize("tol", [0.0, 1e-3, 1.0])

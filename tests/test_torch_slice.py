@@ -186,11 +186,17 @@ def test_classifier_metrics_match_reference():
         assert float(got[key]) == pytest.approx(float(want[key]), rel=1e-6)
 
 
-@pytest.mark.parametrize("kw", [dict(rounds=2), dict(staleness=1), dict(comm="plan")])
+@pytest.mark.parametrize("kw", [dict(rounds=0), dict(staleness=-1), dict(comm="plan")])
 def test_later_slice_options_raise(kw):
+    # rounds and every comms option are ported (tests/test_torch_rounds.py);
+    # what stays refused is a value the reference refuses too, and the
+    # model-axis (mesh) worker of a later slice
     _, xs, ys, _, _ = _draws()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises((ValueError, TypeError)):
         simulated_distributed_slda(_t(xs), _t(ys), 0.2, 0.2, 0.05, **kw)
+    with pytest.raises(NotImplementedError):
+        pipeline.worker_solves(pipeline.BinaryHead(), _t(xs), _t(ys), lam=0.2, lam_prime=0.2,
+                               model_axis="model")
 
 
 def test_quickstart_main_runs_on_cpu(capsys):

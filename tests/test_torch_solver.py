@@ -13,6 +13,7 @@ from repro.stats.synthetic import ar1_covariance
 from repro_torch import interop
 from repro_torch.core import dantzig, solver_dispatch
 from repro_torch.core.dantzig import DantzigConfig
+from test_torch_parity import assert_parity, perturb_ulp, reference_spread
 
 
 def _t(a):
@@ -38,13 +39,18 @@ def _cfgs(**kw):
 
 def test_scan_fixed_rho_matches_reference():
     # adapt_rho=False, 200 iterations: the 1e-5 pin, relative to the
-    # largest entry (the f32 sums run in another order than XLA's)
+    # largest entry (the f32 sums run in another order than XLA's), or
+    # the reference's own spread when Sigma moves by one ulp
     sigma, b, lam = _inputs()
     jcfg, cfg = _cfgs(max_iters=200, adapt_rho=False)
-    want = np.asarray(jax_solve_dantzig_scan(jnp.asarray(sigma), jnp.asarray(b),
-                                             jnp.asarray(lam), jcfg))
+
+    def reference(s):
+        return np.asarray(jax_solve_dantzig_scan(jnp.asarray(s), jnp.asarray(b),
+                                                 jnp.asarray(lam), jcfg))
+
+    want = reference(sigma)
     got = dantzig.solve_dantzig_scan(_t(sigma), _t(b), _t(lam), cfg).numpy()
-    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    assert_parity(got, want, reference_spread(lambda s: reference(perturb_ulp(sigma, s)), want))
 
 
 def test_scan_adaptive_rho_matches_reference_support_and_l2():
@@ -66,11 +72,16 @@ def test_dispatch_matches_reference_with_rho_seed(fused):
     sigma, b, lam = _inputs(d=24, k=5, seed=2)
     rho = np.linspace(0.5, 2.0, 5).astype(np.float32)
     jcfg, cfg = _cfgs(max_iters=150, adapt_rho=False, fused=fused)
-    want, want_rho = jax_solve_dantzig_with_rho(jnp.asarray(sigma), jnp.asarray(b),
-                                                jnp.asarray(lam), jcfg, rho=jnp.asarray(rho))
+
+    def reference(s):
+        return jax_solve_dantzig_with_rho(jnp.asarray(s), jnp.asarray(b), jnp.asarray(lam), jcfg,
+                                          rho=jnp.asarray(rho))
+
+    want, want_rho = reference(sigma)
     got, got_rho = solver_dispatch.solve_dantzig_with_rho(_t(sigma), _t(b), _t(lam), cfg,
                                                           rho=_t(rho))
-    assert np.abs(got.numpy() - np.asarray(want)).max() <= 1e-5 * np.abs(want).max()
+    spread = reference_spread(lambda s: reference(perturb_ulp(sigma, s))[0], want)
+    assert_parity(got, want, spread)
     np.testing.assert_array_equal(got_rho.numpy(), np.asarray(want_rho))
 
 
