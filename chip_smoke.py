@@ -34,7 +34,9 @@ Phases, each of which exits non-zero on failure:
    checks at the launch shapes runs (d) and (e) add, on their own
    statistics (K2 at d = 120, k = 5 and 120; the K3 fold, k = 40 at
    d = 120; K2 and K3 at m = 80, d = 200, k = 1 and 200), each with its
-   template and the card's cudaOccupancyMaxActiveClusters;
+   template and the card's cudaOccupancyMaxActiveClusters; and at the
+   launch shapes the mesh runs (f)-(h) add, one machine a rank (m = 1):
+   d = 200 with k in {1, 200, 67} and d = 128 with k in {1, 4, 64};
 3. main path: Algorithm 1 at the paper's §5.1 size (d = 200, AR(0.8),
    10 signal coordinates, N = 10,000 over m = 20 machines, 500 ADMM
    iterations) through the entry points a user calls, twice --
@@ -64,6 +66,22 @@ Phases, each of which exits non-zero on failure:
    in every round (the masked aggregate finite); then a tol-gated
    re-entry with ``collect_info`` (two K3 a call), warm fewer
    iterations than cold; each held against the plain versions;
+   then the mesh (``repro_torch/launch/mesh.py``): gloo ranks, all on this
+   card, spawned once a run, each resetting and reading its own launch
+   counts around each case; (f) the §5.1 design on a (data=20, model=1)
+   mesh, run (a)'s split, fused: one-shot (K1 and two K2 a rank), T = 3
+   dense rounds, top-20% int8 uplinks (at most 25% of the dense bits as
+   the ranks' gathers carried them, and exactly ``uplink_bits``), 10%
+   dropout masked, an int8 downlink, and a tol-gated re-entry (two K3 a
+   rank a call, warm fewer iterations than cold); (g)
+   ``repro_torch/mesh_distributed_lda.py`` at its own sizes on
+   (data=4, model=2), fused, both heads; (h) the §5.1 problem at
+   N = 10,000 over (data=2, model=3), 67 CLIME columns a rank and one pad
+   column, fused and ``use_kernel=True`` (K4); each case held against
+   the same case on the simulated face on the card, on the same split
+   (F1 equal, accuracy equal for K classes, l2 within 1e-4, 1e-3 on the
+   tol-gated re-entry), with the spawn, the slowest rank's compute and
+   collectives, and the bits each rank's collectives carried;
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function (where there is one), with CUDA events
    over back-to-back calls (``ms``), and the cold and warm sweeps; and
@@ -72,8 +90,9 @@ Phases, each of which exits non-zero on failure:
    host time (``host_us``: the wrapper's wall time over unsynchronised
    calls), K1 also with the L2 cache flushed before each call; and the
    four K2/K3 calls at every cluster size that fits and on the streamed
-   template, in turns; and each launch shape of runs (d) and (e) (time,
-   device and host split, bound, launches), with the runs' stages.
+   template, in turns; and each launch shape of runs (d), (e) and the
+   mesh runs (time, device and host split, bound, launches), with the
+   runs' stages.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
@@ -124,6 +143,13 @@ STAGE_REPS = 5  # run (b)'s stages are host-bound: their wall times spread betwe
 # (configuration ROUNDS: d = 200, N = 10,000 over m = 80, T = 3, 600 iterations).
 MC_L_GRID = 8
 INT8_SHARE = 0.25  # top-20% int8 uplinks: at most this share of the dense uplink bits
+# The mesh runs, gloo ranks all on this card: (f) the §5.1 design on a (data=20,
+# model=1) mesh, run (a)'s split; (g) repro_torch/mesh_distributed_lda.py at its own
+# sizes, (data=4, model=2), d = 128; (h) the §5.1 problem at N = 10,000 over
+# (data=2, model=3), 67 CLIME columns a model rank and one pad column.
+MESH_F, MESH_G, MESH_H = (20, 1), (4, 2), (2, 3)
+MESH_T = 3
+MESH_TIMEOUT = 600  # seconds one mesh run may take, the spawn included
 
 
 FAILURES: list[str] = []
@@ -450,8 +476,27 @@ def shape_checks(label, fac, b, lam, rho, iters, split) -> dict:
                                  torch.cat([lam, lam[:, :1].expand(m, 8)], -1), iters=iters,
                                  rho=torch.cat([rho, rho[:, :1].expand(m, 8)], -1),
                                  alpha=1.7)[..., :k]
+    spread = float((wide - want).abs().max())
+    if m == 1:
+        # one machine: the plain version beside a second copy of it, where
+        # cuBLAS takes another kernel than for a batch of one (K2 runs each
+        # machine alone at any m), and with Sigma moved by one ulp, up or
+        # down by a fixed draw and kept symmetric, as the CPU tests' pins
+        pair = ref.dantzig_fused_ref(fac.sigma.expand(2, d, d), fac.q.expand(2, d, d),
+                                     fac.inv_eig.expand(2, d), b.expand(2, d, k),
+                                     lam.expand(2, k), iters=iters, rho=rho.expand(2, k),
+                                     alpha=1.7)[:1]
+        spread = max(spread, float((pair - want).abs().max()))
+        for seed in (1, 2, 3):
+            up = torch.rand(d, d, generator=torch.Generator(device=dev).manual_seed(seed),
+                            device=dev) < 0.5
+            up = torch.triu(up) | torch.triu(up, 1).mT
+            moved = torch.nextafter(fac.sigma, torch.where(up, float("inf"), float("-inf")))
+            ulp = ref.dantzig_fused_ref(moved, fac.q, fac.inv_eig, b, lam, iters=iters,
+                                        rho=rho, alpha=1.7)
+            spread = max(spread, float((ulp - want).abs().max()))
     err, scale = float((got - want).abs().max()), float(want.abs().max())
-    pin = max(1e-5 * max(1.0, scale), 2 * float((wide - want).abs().max()))
+    pin = max(1e-5 * max(1.0, scale), 2 * spread)
     other = max(1, bk // 2)
     same = {f"block_k={other}": torch.equal(k2(block_k=other), got),
             "column 0 alone": torch.equal(k2(cols=slice(0, 1)), got[..., :1])}
@@ -469,6 +514,10 @@ def shape_checks(label, fac, b, lam, rho, iters, split) -> dict:
     trace = []
     k3_plain(n=iters - CHECK_EVERY, tol=0.0, trace=trace)
     tol = float(torch.stack(trace).amin(0).flatten().median())
+    if m * -(-k // bk) == 1:
+        # one block: a gate at its own least residual is met with no margin,
+        # and the kernel's rounding decides the check it stops at
+        tol *= 1.01
     gated = k3(tol=tol)
     want_w, _, want_n = k3_plain(tol=tol)
     diff = gated.iters - want_n
@@ -485,7 +534,8 @@ def shape_checks(label, fac, b, lam, rho, iters, split) -> dict:
     check(all(same.values()), f"{label}: not bit-identical: {same}")
     check(int((diff != 0).sum()) <= 1 and int(diff.abs().max()) <= CHECK_EVERY,
           f"{label}: K3 block counts {gated.iters.tolist()} vs plain {want_n.tolist()}")
-    check(counts[0] < iters == counts[-1],
+    # one block (m = 1, k = 1): the gate at its own least residual stops it early
+    check(counts[0] < iters and (gated.iters.numel() == 1 or counts[-1] == iters),
           f"{label}: the gate {tol} stopped no block early, or every block")
     check(gate_err <= pin, f"{label}: gated K3 err {gate_err} > {pin}")
     check(bool(fixed.iters.eq(iters).all()), f"{label}: tol=None counts differ")
@@ -528,6 +578,67 @@ def rounds_inputs(dev, problem) -> SimpleNamespace:
     return SimpleNamespace(xs=xs, ys=ys, lam=0.3 * math.sqrt(math.log(cfg.d) / n) * b1,
                            t=0.5 * math.sqrt(math.log(cfg.d) / cfg.N) * b1,
                            mu1=xs.reshape(-1, cfg.d).mean(0), mu2=ys.reshape(-1, cfg.d).mean(0))
+
+
+def mesh_h_inputs(dev, problem) -> SimpleNamespace:
+    """Run (h)'s draws of the §5.1 problem, N = 10,000 over 2 machines, from their own
+    generator, and the quickstart's tuning."""
+    from repro_torch.quickstart import tuning
+    from repro_torch.stats import synthetic
+
+    m, n = MESH_H[0], SYNTHETIC.N // MESH_H[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    xs, ys = synthetic.sample_machines(gen, problem, m, n // 2, n // 2, device=dev)
+    lam, _, t = tuning(problem.beta_star, D, n, SYNTHETIC.N)
+    return SimpleNamespace(xs=xs, ys=ys, lam=lam, t=t, mu1=xs.reshape(-1, D).mean(0),
+                           mu2=ys.reshape(-1, D).mean(0))
+
+
+def mesh_g_stats(dev) -> SimpleNamespace:
+    """One machine of run (g)'s design (d = 128, n = 500, both heads), from its own
+    generator: the statistics of the K2 launch shapes run (g) adds."""
+    from repro_torch.core import pipeline
+    from repro_torch.stats import synthetic
+
+    d, n = 128, 500
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    problem = synthetic.make_problem(d=d, n_signal=10, rho=0.8, device=dev)
+    x, y = synthetic.sample_machines(gen, problem, 1, n // 2, n // 2, device=dev)
+    mc_problem = synthetic.make_mc_problem(d=d, num_classes=4, n_signal=8, device=dev)
+    xk, labels = synthetic.sample_mc_machines(gen, mc_problem, 1, n, device=dev)
+    b1 = float(problem.beta_star.abs().sum())
+    b1k = float(mc_problem.betas.abs().sum(0).max())
+    return SimpleNamespace(binary=pipeline.BinaryHead(False).stats(x, y),
+                           multiclass=pipeline.MulticlassHead(4).stats(xk, labels),
+                           lam=0.3 * math.sqrt(math.log(d) / n) * b1,
+                           lam_k=0.3 * math.sqrt(math.log(d) / n) * b1k)
+
+
+def mesh_summary(tag: str, reports: dict, spawn_s: float, card: str) -> collections.Counter:
+    """Print each case's per-rank numbers and check its result replicated; returns the
+    kernel launches summed over ranks and cases."""
+    total = collections.Counter()
+    print(f"[mesh {tag}] spawn + process group + mesh {spawn_s:.2f} s ({card})")
+    for name, rep in reports.items():
+        for counts in rep["launches"]:
+            total.update(counts)
+        compute = max(w - c for w, c in zip(rep["wall_s"], rep["collective_s"]))
+        launches = sorted({json.dumps(c, sort_keys=True) for c in rep["launches"]})
+        print(f"  {name}: slowest rank's compute {compute:.4f} s, slowest rank's collectives "
+              f"{max(rep['collective_s']):.4f} s, wall {max(rep['wall_s']):.4f} s; bits a rank "
+              f"on the data axis {sorted(set(rep['data_bits']))}, the model axis "
+              f"{sorted(set(rep['model_bits']))}; launches a rank {', '.join(launches)}")
+        check(all(rep["same_as_rank0"]), f"run {tag} {name}: the ranks' results differ")
+    return total
+
+
+def ranks_launched(tag: str, name: str, rep: dict, **want) -> None:
+    """Check every rank's launches: ``kernel=n`` exactly n, ``kernel=None`` at least one."""
+    for rank, counts in enumerate(rep["launches"]):
+        for kernel, n in want.items():
+            ok = counts[kernel] > 0 if n is None else counts[kernel] == n
+            check(ok, f"run {tag} {name}: rank {rank} launched {kernel} {counts[kernel]} times, "
+                      f"not {'some' if n is None else n}")
 
 
 def mc_rows(results: dict, problem, z, zl) -> dict:
@@ -609,7 +720,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check runs on an NVIDIA card")
 
-    from repro_torch.core import pipeline
+    from repro_torch.core import classifier, pipeline
     from repro_torch.core.dantzig import DantzigConfig
     from repro_torch.core.path import (
         select_by_kkt,
@@ -991,6 +1102,43 @@ def main() -> None:
         check(k2_info["cluster"] > 0 and k3_info["cluster"] > 0,
               f"{label}: the model sends the shape to the streamed template")
 
+    # the launch shapes the mesh runs (f)-(h) add: one machine a rank (m = 1), on
+    # one machine's statistics of each run: the direction (k = 1; K = 4 in run
+    # (g)'s K-class head), every CLIME column (model = 1), and one model rank's
+    # share of them (67 of d = 200 over 3 ranks, 64 of d = 128 over 2)
+    mh = mesh_h_inputs(dev, problem)
+    mg = mesh_g_stats(dev)
+    f_stats = pipeline.suff_stats(xs[:1], ys[:1], use_kernel=False)
+    f_fac = spectral_factor(f_stats.sigma)
+    h_stats = pipeline.suff_stats(mh.xs[:1], mh.ys[:1], use_kernel=False)
+    g_fac, g_mfac = spectral_factor(mg.binary.sigma), spectral_factor(mg.multiclass.sigma)
+    cols_h, cols_g = -(-D // MESH_H[1]), -(-128 // MESH_G[1])
+    mesh_shapes = {
+        "mesh k=1 d=200": (f_fac, f_stats.mu_d.unsqueeze(-1), lam),
+        "mesh CLIME k=200": (f_fac, torch.eye(D, device=dev)[None], lam),
+        f"mesh CLIME k={cols_h} d=200": (spectral_factor(h_stats.sigma),
+                                         torch.eye(D, device=dev)[None, :, :cols_h], mh.lam),
+        "mesh k=1 d=128": (g_fac, mg.binary.rhs, mg.lam),
+        "mesh k=4 d=128": (g_mfac, mg.multiclass.rhs, mg.lam_k),
+        f"mesh CLIME k={cols_g} d=128": (g_fac, torch.eye(128, device=dev)[None, :, :cols_g],
+                                         mg.lam),
+    }
+    mesh_ops, mesh_info = {}, {}
+    for label, (fac, b, lam_v) in mesh_shapes.items():
+        b = b.contiguous()
+        m_, d_, k_ = b.shape
+        lam_cols = torch.full((m_, k_), lam_v, dtype=torch.float32, device=dev)
+        mesh_ops[label] = (fac, b, lam_cols)
+        k3_info = shape_checks(label, fac, b, lam_cols, torch.ones(m_, k_, device=dev),
+                               CHECK_ITERS, 2 * CHECK_ITERS // 5)
+        k2_info = launch_shape(m_, d_, k_, False)
+        mesh_info[label] = {"K2": k2_info, "K3": k3_info}
+        print(f"[kernels] {label} (m={m_}, d={d_}, k={k_}): K2 {json.dumps(k2_info)}, "
+              f"{m_ * -(-k_ // k2_info['block_k'])} clusters; K3 {json.dumps(k3_info)}, "
+              f"{m_ * -(-k_ // k3_info['block_k'])} clusters")
+        check(k2_info["cluster"] > 0 and k3_info["cluster"] > 0,
+              f"{label}: the model sends the shape to the streamed template")
+
     # ---- 3. the main path ---------------------------------------------------
     def estimators(cfg, use_kernel, times):
         out = {}
@@ -1325,6 +1473,149 @@ def main() -> None:
         check(bar.shape == (d_rd,) and bool(torch.isfinite(bar).all()),
               f"run (e) {name}: shape {tuple(bar.shape)} or non-finite values")
 
+    # ---- 3 (f)-(h). the mesh: gloo ranks on this card ------------------------------
+    # each run spawns its mesh once and runs its cases in it; each rank resets its
+    # launch counts before a case and reads them after (mesh_cases.run_cases), and
+    # each case is held against the same case on the simulated face, on the card,
+    # on the same split
+    from repro_torch import mesh_distributed_lda
+    from repro_torch.core.compression import uplink_bits
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.launch.mesh_cases import MeshCase, run_cases
+
+    card_line = smi_line()
+    mesh_tally = collections.Counter()  # rank launches of runs (f)-(h), by (kernel, m, d, k)
+    mesh_launches = collections.Counter()
+
+    def spread_over(shapes, kernel, rep, names):
+        """Each rank's launches of ``kernel`` in the cases ``names``, one per shape in turn."""
+        for name in names:
+            for counts in rep[name]["launches"]:
+                for shape in shapes:
+                    mesh_tally[(kernel, *shape)] += counts[kernel] // len(shapes)
+
+    def mesh_run(tag, shape, arrays, cases):
+        spawned = time.time()
+        reports = run_on_mesh(run_cases, *shape, arrays, cases, backend="gloo",
+                              timeout=MESH_TIMEOUT)
+        spawn_s = max(reports.pop("_started")) - spawned
+        mesh_launches.update(mesh_summary(tag, reports, spawn_s, card_line))
+        return reports
+
+    def gaps(tag, got, want):
+        out = {name: float((got[name] - want[name]).abs().max()) for name in want}
+        print(f"  max |mesh - simulated| {tag}: {json.dumps(out)}")
+
+    # (f): the §5.1 design on 20 ranks, run (a)'s split
+    f_cfg = DantzigConfig(max_iters=ITERS, fused=True)
+    f_tol_cfg = DantzigConfig(max_iters=ITERS, fused=True, adapt_rho=False, tol=PATH_TOL,
+                              check_every=CHECK_EVERY)
+    f_int8 = Compression(D // 5, "int8")
+    f_drop = FaultSchedule(dropout=ROUNDS.dropout, seed=SEED)
+    f_kw = {"one-shot": {}, "dense T=3": dict(rounds=MESH_T),
+            "top-20% int8 T=3": dict(rounds=MESH_T, compression=f_int8),
+            # the same case again: the first compressed case's time includes each
+            # rank's first use of the codec's CUDA operations
+            "top-20% int8 T=3, again": dict(rounds=MESH_T, compression=f_int8),
+            "10% dropout masked T=3": dict(rounds=MESH_T, faults=f_drop,
+                                           aggregation=Aggregation()),
+            "int8 downlink T=3": dict(rounds=MESH_T, comm=CommPlan(downlink=f_int8))}
+    f_cases = [MeshCase(name, "binary", dict(lam=lam, lam_prime=lam, t=t, cfg=f_cfg, **kw))
+               for name, kw in f_kw.items()]
+    f_cases.append(MeshCase("re-entry", "reentry", dict(lam=lam, lam_prime=lam, cfg=f_tol_cfg)))
+    f_rep = mesh_run("(f)", MESH_F, dict(x=xs.reshape(-1, D).cpu(), y=ys.reshape(-1, D).cpu()),
+                     f_cases)
+    f_sim = {name: simulated_distributed_slda(xs, ys, lam, lam, t, f_cfg, **kw)
+             for name, kw in f_kw.items()}
+    f_got = {name: f_rep[name]["out"].to(dev) for name in f_kw}
+    f_sim_cold, f_sim_ws = simulate_multi_round(pipeline.BinaryHead(), (xs, ys), lam=lam,
+                                                lam_prime=lam, cfg=f_tol_cfg, collect_info=True)
+    f_sim_warm, f_sim_ws_warm = simulate_multi_round(
+        pipeline.BinaryHead(), (xs, ys), lam=lam, lam_prime=lam, cfg=f_tol_cfg,
+        collect_info=True, **{key: getattr(f_sim_ws, key) for key in
+                              ("rho_beta", "rho_theta", "state_beta", "state_theta")})
+    f_cold, f_warm, it_cold, it_warm = f_rep["re-entry"]["out"]
+    f_re_got = {"cold re-entry": hard_threshold(f_cold.to(dev)[:, 0], t),
+                "warm re-entry": hard_threshold(f_warm.to(dev)[:, 0], t)}
+    f_re_sim = {"cold re-entry": hard_threshold(f_sim_cold[:, 0], t),
+                "warm re-entry": hard_threshold(f_sim_warm[:, 0], t)}
+    dense_bits, int8_bits = (f_rep[name]["data_bits"] for name in ("dense T=3",
+                                                                  "top-20% int8 T=3"))
+    print(f"  against the simulated face on the card ({f_cfg}):")
+    gaps("(f)", {**f_got, **f_re_got}, {**f_sim, **f_re_sim})
+    hold_rows("run (f)", metrics(f_got, problem.beta_star, z, labels, mu1_all, mu2_all),
+              metrics(f_sim, problem.beta_star, z, labels, mu1_all, mu2_all), 1e-4)
+    sim_iters = [int(w.iters_beta.sum()) + int(w.iters_theta.sum())
+                 for w in (f_sim_ws, f_sim_ws_warm)]
+    print(f"  the tol-gated re-entry ({f_tol_cfg}), executed column-iterations over the ranks: "
+          f"cold {it_cold}, warm {it_warm} (simulated face: {sim_iters}):")
+    hold_rows("run (f) re-entry", metrics(f_re_got, problem.beta_star, z, labels, mu1_all,
+                                          mu2_all),
+              metrics(f_re_sim, problem.beta_star, z, labels, mu1_all, mu2_all), 1e-3)
+    print(f"  data-axis bits a rank on the wire: dense T=3 {sorted(set(dense_bits))}, top-20% "
+          f"int8 T=3 {sorted(set(int8_bits))} ({max(int8_bits) / min(dense_bits):.4f} of dense;"
+          f" counted {MESH_T * uplink_bits(f_int8, D, 1)})")
+    check(all(b == MESH_T * uplink_bits(f_int8, D, 1) for b in int8_bits),
+          "run (f): the int8 gathers carried other bits than uplink_bits counts")
+    check(max(int8_bits) <= INT8_SHARE * min(dense_bits),
+          f"run (f): top-20% int8 carried {max(int8_bits)} bits, over {INT8_SHARE} of dense")
+    check(it_warm < it_cold, f"run (f): the warm re-entry ran {it_warm} iterations, cold {it_cold}")
+    for name in f_kw:
+        ranks_launched("(f)", name, f_rep[name], gram=None, dantzig_fused=2,
+                       dantzig_fused_state=0)
+    ranks_launched("(f)", "re-entry", f_rep["re-entry"], dantzig_fused=0, dantzig_fused_state=4)
+    spread_over([(1, D, 1), (1, D, D)], "dantzig_fused", f_rep, f_kw)
+    spread_over([(1, D, 1), (1, D, D)], "dantzig_fused_state", f_rep, ["re-entry"])
+
+    # (g): the mesh example at its own sizes, fused
+    g_cfg = DantzigConfig(max_iters=ITERS, fused=True)
+    print(f"[mesh (g)] python -m repro_torch.mesh_distributed_lda, {g_cfg}:")
+    g = mesh_distributed_lda.main(device=dev, cfg=g_cfg)
+    g_rep = {k: v for k, v in g["reports"].items() if k != "_started"}
+    mesh_launches.update(mesh_summary("(g)", g_rep, g["spawn_s"], card_line))
+    g_sim = simulated_distributed_slda(g["xs"], g["ys"], g["lam"], g["lam"], g["t"], g_cfg)
+    g_sim_k = simulated_distributed_mc_slda(g["mxs"], g["mlabels"], 4, g["lam_k"], g["lam_k"],
+                                            g["t_k"], g_cfg)
+    gaps("(g)", {"binary": g["beta"], "K-class": g["beta_k"], "K-class means": g["means_k"]},
+         {"binary": g_sim, "K-class": g_sim_k[0], "K-class means": g_sim_k[1]})
+    f1_l2 = {name: (float(classifier.f1_score(beta, g["problem"].beta_star)),
+                    float(classifier.estimation_errors(beta, g["problem"].beta_star)["l2"]))
+             for name, beta in (("binary", g["beta"]), ("binary simulated", g_sim))}
+    hold_rows("run (g)", {"binary": f1_l2["binary"]}, {"binary": f1_l2["binary simulated"]}, 1e-4)
+    hold_rows("run (g)", mc_rows({"K-class": (g["beta_k"], g["means_k"])}, g["mc_problem"],
+                                 g["z_k"], g["labels_k"]),
+              mc_rows({"K-class": g_sim_k}, g["mc_problem"], g["z_k"], g["labels_k"]), 1e-4,
+              accuracy=True)
+    ranks_launched("(g)", "binary", g_rep["binary"], gram=None, dantzig_fused=2)
+    ranks_launched("(g)", "multiclass", g_rep["multiclass"], dantzig_fused=2)
+    spread_over([(1, 128, 1), (1, 128, cols_g)], "dantzig_fused", g_rep, ["binary"])
+    spread_over([(1, 128, 4), (1, 128, cols_g)], "dantzig_fused", g_rep, ["multiclass"])
+
+    # (h): the remainder case, N = 10,000 over (data=2, model=3): fused, and K4's scan
+    h_kw = {"one-shot fused": f_cfg,
+            "one-shot use_kernel (K4)": DantzigConfig(max_iters=ITERS, use_kernel=True)}
+    h_rep = mesh_run("(h)", MESH_H, dict(x=mh.xs.reshape(-1, D).cpu(),
+                                         y=mh.ys.reshape(-1, D).cpu()),
+                     [MeshCase(name, "binary", dict(lam=mh.lam, lam_prime=mh.lam, t=mh.t,
+                                                    cfg=cfg)) for name, cfg in h_kw.items()])
+    h_sim = {name: simulated_distributed_slda(mh.xs, mh.ys, mh.lam, mh.lam, mh.t, cfg)
+             for name, cfg in h_kw.items()}
+    h_got = {name: h_rep[name]["out"].to(dev) for name in h_kw}
+    print("  against the simulated face on the card:")
+    gaps("(h)", h_got, h_sim)
+    hold_rows("run (h)", metrics(h_got, problem.beta_star, z, labels, mh.mu1, mh.mu2),
+              metrics(h_sim, problem.beta_star, z, labels, mh.mu1, mh.mu2), 1e-4)
+    ranks_launched("(h)", "one-shot fused", h_rep["one-shot fused"], gram=None, dantzig_fused=2)
+    ranks_launched("(h)", "one-shot use_kernel (K4)", h_rep["one-shot use_kernel (K4)"],
+                   gram=None, soft_threshold=None, dantzig_fused=0)
+    spread_over([(1, D, 1), (1, D, cols_h)], "dantzig_fused", h_rep, ["one-shot fused"])
+    for kernel in ops.LAUNCHES:
+        check(mesh_launches[kernel] > 0, f"runs (f)-(h): no rank launched {kernel}")
+    for kernel, n in mesh_launches.items():
+        launches[kernel] += n
+    print(f"[mesh] rank launches of runs (f)-(h), all ranks: {json.dumps(mesh_launches)}; by "
+          f"shape: {json.dumps({str(k): v for k, v in sorted(mesh_tally.items())})}")
+
     # ---- 4. times -------------------------------------------------------------
     name_card = torch.cuda.get_device_name(0)
     xc = xs - mu1.unsqueeze(1)  # bmm's input: the centering is not in the library call
@@ -1377,38 +1668,55 @@ def main() -> None:
                             **extra))
 
     n = n1
+    # K1 on one rank's machine (m = 1, n1 = 250), as every rank of run (f) launches it
+    x_one, mu_one = xs[:1].contiguous(), mu1[:1].contiguous()
+    gram_mesh = {"shape": [1, n1, D], "launches": mesh_launches["gram"],
+                 "ms": cuda_ms(lambda: gram_cuda(x_one, mu_one), 50),
+                 "bound_ms": bound(n1 * D * (D + 1) + n1 * D, 4 * (n1 * D + D + D * D))[0]}
     row("gram", "cuda", "repro_torch/kernels/csrc/gram.cu", "src/repro/kernels/gram.py:28",
         cuda_ms(lambda: gram_cuda(xs, mu1), 50), cuda_ms(lambda: ref.gram_ref(xs, mu1), 50),
         M * (n * D * (D + 1) + n * D), 4 * (M * n * D + M * D + M * D * D), "gram library bmm",
-        library_ms=cuda_ms(lambda: torch.bmm(xc.mT, xc), 50))  # library: centering excluded
+        library_ms=cuda_ms(lambda: torch.bmm(xc.mT, xc), 50),  # library: centering excluded
+        mesh=gram_mesh)
 
     # each launch shape runs (d) and (e) add: time (back to back, device,
     # host), its bound for this run's work, and its launches in those runs
     def new_shape_row(label, state_io):
-        fac, b, lam_cols = new_ops[label]
+        iters = MULTICLASS.max_iters if label.startswith("multiclass") else ROUNDS.max_iters
+        info = new_info[label]["K3" if state_io else "K2"]
+        return shape_row(*new_ops[label], info, state_io, iters, tally)
+
+    def shape_row(fac, b, lam_cols, info, state_io, iters, counter):
         m_, d_, k_ = b.shape
         a_, q_, inv_ = fac.sigma.contiguous(), fac.q.contiguous(), fac.inv_eig.contiguous()
         ones = torch.ones_like(lam_cols)
-        iters = MULTICLASS.max_iters if label.startswith("multiclass") else ROUNDS.max_iters
         if state_io:
             def fn():
                 return dantzig_fused_state_cuda(a_, q_, inv_, b, lam_cols, ones, None,
                                                 iters=iters, alpha=1.7, tol=PATH_TOL,
                                                 check_every=CHECK_EVERY)
-            info = new_info[label]["K3"]
             work = state_kernel_work(fn().iters, k_, info["block_k"], iters, d=d_)
         else:
             def fn():
                 return dantzig_fused_cuda(a_, q_, inv_, b, lam_cols, ones, iters=iters,
                                           alpha=1.7)
-            info = new_info[label]["K2"]
             work = fixed_kernel_work(m_, d_, k_, iters)
         bound_ms, bound_by = bound(*work)
         reps = 2 if m_ > M else 3
         name = "dantzig_fused_state" if state_io else "dantzig_fused"
         return {"shape": [m_, d_, k_], "iters": iters, "ms": cuda_ms(fn, reps),
-                "bound_ms": bound_ms, "bound_by": bound_by, "launches": tally[(name, m_, d_, k_)],
-                "launch": info, **time_split(fn, reps, reps)}
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "launches": counter[(name, m_, d_, k_)], "launch": info,
+                **time_split(fn, reps, reps)}
+
+    # each launch shape of the mesh runs (f)-(h), m = 1: its launches there
+    # (rank launches, summed over the ranks), time and bound
+    def mesh_shape_row(label, state_io):
+        info = mesh_info[label]["K3" if state_io else "K2"]
+        return shape_row(*mesh_ops[label], info, state_io, ITERS, mesh_tally)
+
+    def mesh_launched(kernel, label):
+        return mesh_tally[(kernel, *mesh_ops[label][1].shape)] > 0
 
     def launched(kernel, label):
         return tally[(kernel, *new_ops[label][1].shape)] > 0
@@ -1419,6 +1727,14 @@ def main() -> None:
               if launched("dantzig_fused_state", label)}
     print(f"[times] runs (d) and (e) launch shapes, K2: {json.dumps(k2_new)}\n  K3: "
           f"{json.dumps(k3_new)}")
+    k2_mesh = {label: mesh_shape_row(label, False) for label in mesh_ops
+               if mesh_launched("dantzig_fused", label)}
+    k3_mesh = {label: mesh_shape_row(label, True) for label in mesh_ops
+               if mesh_launched("dantzig_fused_state", label)}
+    print(f"[times] mesh runs (f)-(h) launch shapes, K2: {json.dumps(k2_mesh)}\n  K3: "
+          f"{json.dumps(k3_mesh)}")
+    check(len(k2_mesh) == 6 and len(k3_mesh) == 2,
+          f"runs (f)-(h): K2 ran at {sorted(k2_mesh)}, K3 at {sorted(k3_mesh)}")
     k2_ms = cuda_ms(k2_clime, 3)
     k2_plain_ms = cuda_ms(lambda: ref.dantzig_fused_ref(
         stats.sigma, factor.q, factor.inv_eig, eye, lam, iters=ITERS, rho=1.0), 1)
@@ -1431,7 +1747,7 @@ def main() -> None:
         "src/repro/kernels/dantzig_fused.py:202", k2_ms, k2_plain_ms,
         ITERS * M * (8 * D * D * D + 20 * D * D),
         4 * (2 * M * D * D + M * D + 2 * M * D * D + 2 * M * D),
-        launch=launches_info["K2 CLIME"],
+        launch=launches_info["K2 CLIME"], mesh=k2_mesh,
         direction_k1={"ms": k2_dir_ms,
                       "bound_ms": bound(ITERS * M * (8 * D * D + 20 * D),
                                         4 * (2 * M * D * D + M * D + 4 * M * D + 2 * M))[0],
@@ -1455,7 +1771,7 @@ def main() -> None:
     fold_bound, _ = bound(*state_kernel_work(fold_counts, L_GRID, L_GRID, ITERS))
     row("dantzig_fused_state", "cuda", "repro_torch/kernels/csrc/dantzig_fused.cu",
         "src/repro/kernels/dantzig_fused.py:222", k3_ms, k3_plain_ms, flops, nbytes,
-        launch=launches_info["K3 CLIME"],
+        launch=launches_info["K3 CLIME"], mesh=k3_mesh,
         direction_fold={"ms": fold_ms, "bound_ms": fold_bound, "launch": launches_info["K3 fold"],
                         **splits["dantzig_fused_state fold"]},
         runs_d_e=k3_new)
@@ -1502,7 +1818,8 @@ def main() -> None:
         4 * numel, 4 * (2 * numel + M * D), "soft_threshold library softshrink",
         library_ms=cuda_ms(lambda: torch.nn.functional.softshrink(x_shrink, 0.05), 200),
         scalar_t={"ms": st_scalar_ms, "bound_ms": bound(4 * numel, 8 * numel)[0],
-                  **splits["soft_threshold scalar t"], "host_parts_us": k4_host_parts()})
+                  **splits["soft_threshold scalar t"], "host_parts_us": k4_host_parts()},
+        mesh={"launches": mesh_launches["soft_threshold"]})
     print(f"[times] K2 direction solve (m={M}, d={D}, k=1, {ITERS} iters): {k2_dir_ms:.3f} ms"
           f" (plain {k2_dir_plain_ms:.3f} ms);"
           f" K4 with a scalar t: {st_scalar_ms:.4f} ms (the library_ms column is"

@@ -21,15 +21,18 @@ The codec, per machine, per round, per direction column:
 
 Machines lead every tensor: a payload's leaves are (..., k_top, K)
 (scales (..., K)) and decode against a shared (d, K) reference gives
-(..., d, K).  The mesh faces (``gather_payloads``,
-``sparse_mean_mesh``) come with the port's mesh slice.
+(..., d, K).  On the mesh, :func:`gather_payloads` moves each
+machine's payload across the data axes at its wire dtypes and
+:func:`sparse_mean_mesh` reconstructs the mean from it on every rank.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
+
+from repro_torch.core import collectives
 
 # wire width of one transmitted value, per quantization mode
 QUANTIZE_MODES = {None: 32, "bf16": 16, "int8": 8}
@@ -172,3 +175,23 @@ def decode_mean(comp: Compression, payloads: Payload, ref: torch.Tensor) -> torc
     """Mean over machines of the reconstructions: the dense path's mean, so the identity
     codec keeps it bit for bit."""
     return decode_stack(comp, payloads, ref).mean(0)
+
+
+def gather_payloads(comp: Compression, payload: Payload, data_axes: Sequence) -> Payload:
+    """Gather one machine's payload leaves over the data axes (process groups): (m, ...) leaves.
+
+    The only data a compressed round moves between machines, at the
+    wire dtypes (int8 values and float32 scales in int8 mode; int16
+    indices as their bytes, see :mod:`repro_torch.core.collectives`).
+    """
+    return Payload(collectives.all_gather_stack(payload.values, data_axes),
+                   collectives.all_gather_stack(payload.indices, data_axes),
+                   collectives.all_gather_stack(payload.scales, data_axes)
+                   if comp.quantize == "int8" else None)
+
+
+def sparse_mean_mesh(comp: Compression, payload: Payload, ref: torch.Tensor,
+                     data_axes: Sequence) -> torch.Tensor:
+    """The compressed round's aggregate on the mesh: the payload gather, then every rank's
+    :func:`decode_mean` of it (replicated (d, K))."""
+    return decode_mean(comp, gather_payloads(comp, payload, data_axes), ref)

@@ -14,7 +14,8 @@
 
 Every masked path *selects* with ``torch.where`` and never multiplies
 by a mask: 0 * NaN would re-poison the sum.  Machines lead every
-tensor; ``gather_machines`` (the mesh face) comes with the mesh slice.
+tensor in the simulation; on the mesh a rank holds one machine's
+block and :func:`gather_machines` stacks them.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.compression import Compression, Payload
 from repro_torch.device import require_device
 
@@ -208,10 +210,24 @@ def select_anchor(history: Sequence[torch.Tensor], stale: torch.Tensor, t: int,
                   bound: int) -> torch.Tensor:
     """Per-machine round-``t`` anchor under bounded staleness.
 
-    ``history[j - 1]`` is the (m, d, K) round-j anchor.  A straggler
-    with requested staleness s anchors at round t - s_eff, s_eff
-    clipped into [0, min(t - 1, bound)].
+    ``history[j - 1]`` is the round-j anchor: (m, d, K) with (m,)
+    ``stale`` in the simulation, one machine's (d, K) with a scalar
+    ``stale`` on the mesh.  A straggler with requested staleness s
+    anchors at round t - s_eff, s_eff clipped into [0, min(t - 1, bound)].
     """
-    stacked = torch.stack(list(history)[:t])  # (t, m, d, K)
+    stacked = torch.stack(list(history)[:t])  # (t, [m,] d, K)
     idx = (t - 1) - torch.clamp(stale, 0, min(t - 1, bound))
+    if stacked.ndim == 3:  # mesh: one machine's scalar request
+        return stacked[idx.long()]
     return stacked[idx.long(), torch.arange(stacked.shape[1], device=stacked.device)]
+
+
+def gather_machines(x: torch.Tensor, data_axes: Sequence) -> torch.Tensor:
+    """Machine-stack ``x`` over the data axes (process groups): (...) -> (m, ...).
+
+    The mesh twin of the simulation's machine axis, for the trimmed mean
+    (every machine's block) and the masked compressed path (the
+    liveness weights beside the payload); rows in machine order,
+    row-major over ``("pod", "data")``.
+    """
+    return collectives.all_gather_stack(x, data_axes)

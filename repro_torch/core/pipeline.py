@@ -11,8 +11,12 @@ aux)``: :class:`BinaryHead` (the paper's two-sample problem, K = 1)
 or :class:`MulticlassHead` (K classes sharing one covariance, all K
 directions in one batched solve).
 
-The mesh faces (``model_axis``) come with a later slice of the port
-and raise here.
+On the mesh (:mod:`repro_torch.core.distributed`) one rank is one
+machine, or one machine's share of the CLIME columns: with
+``model_axis`` (the model axis's process group) the d columns pad to a
+multiple of the axis size, each rank solves its ``ceil(d / size)``,
+and :func:`apply_correction` reassembles the correction with one
+masked gather over the axis, so any (d, size) pair is exact.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.clime import (
     solve_clime_columns,
     solve_clime_columns_full,
@@ -167,37 +172,63 @@ class WorkerSolves(NamedTuple):
 
 
 def worker_solves(head, *data: torch.Tensor, lam, lam_prime,
-                  cfg: DantzigConfig = DantzigConfig(), model_axis: str | None = None,
-                  rho_beta=None, rho_theta=None, state_beta: AdmmState | None = None,
-                  state_theta: AdmmState | None = None, symmetrize: bool = False,
-                  full: bool = False) -> WorkerSolves:
+                  cfg: DantzigConfig = DantzigConfig(), model_axis=None,
+                  model_axis_size: int = 1, rho_beta=None, rho_theta=None,
+                  state_beta: AdmmState | None = None, state_theta: AdmmState | None = None,
+                  symmetrize: bool = False, full: bool = False) -> WorkerSolves:
     """Run the machines' ADMM solves (direction block + CLIME columns).
 
     ``rho_*`` / ``state_*`` thread warm penalties and ADMM states into
     the two solves.  ``full=True`` routes both through
     :func:`~repro_torch.core.solver_dispatch.solve_dantzig_full` and fills
-    the warm-carry fields of the result.
+    the warm-carry fields of the result.  ``model_axis`` (a process
+    group of ``model_axis_size`` ranks) shards the CLIME columns;
+    ``symmetrize`` (eq. 3.3) pairs theta_ij with theta_ji across the
+    shards and so needs the unsharded path: both together raise.
     """
+    if symmetrize and model_axis is not None:
+        raise ValueError(
+            "symmetrize=True needs the full (d, d) Theta_hat on one rank; the "
+            "model-axis-sharded path would need an extra (d, d) gather to pair "
+            "theta_ij with theta_ji (eq. 3.3). Run with model_axis=None to symmetrize.")
     hs = head.stats(*data)
     return solves_from_stats(hs, lam=lam, lam_prime=lam_prime, cfg=cfg,
-                             model_axis=model_axis, rho_beta=rho_beta, rho_theta=rho_theta,
-                             state_beta=state_beta, state_theta=state_theta,
-                             symmetrize=symmetrize, full=full)
+                             model_axis=model_axis, model_axis_size=model_axis_size,
+                             rho_beta=rho_beta, rho_theta=rho_theta, state_beta=state_beta,
+                             state_theta=state_theta, symmetrize=symmetrize, full=full)
+
+
+def model_columns(d: int, index: int, size: int, device=None):
+    """Rank ``index`` of a model axis of ``size``: its CLIME columns and their non-pad mask.
+
+    Rank i takes ``i * cols_per + arange(cols_per)``, ``cols_per =
+    ceil(d / size)``; pad columns (>= d) clamp to column d - 1 and are
+    masked out of the gather.
+    """
+    cols_per = -(-d // size)
+    cols = index * cols_per + torch.arange(cols_per, device=device)
+    return cols.clamp_max(d - 1), cols < d
 
 
 def solves_from_stats(hs: HeadStats, *, lam, lam_prime, cfg: DantzigConfig = DantzigConfig(),
-                      model_axis: str | None = None, rho_beta=None, rho_theta=None,
-                      state_beta: AdmmState | None = None,
+                      model_axis=None, model_axis_size: int = 1, rho_beta=None,
+                      rho_theta=None, state_beta: AdmmState | None = None,
                       state_theta: AdmmState | None = None, symmetrize: bool = False,
                       full: bool = False) -> WorkerSolves:
     """The solve body of :func:`worker_solves`, from pre-built statistics."""
-    if model_axis is not None:
-        raise NotImplementedError(
-            "the model-axis (sharded CLIME) worker comes with the port's mesh slice")
     # ONE eigendecomposition for all machines: the direction solve and
     # every CLIME column share this factor (it is rho- and lam-independent).
     factor = spectral_factor(hs.sigma)
-    cols = torch.arange(hs.rhs.shape[-2], device=hs.rhs.device)
+    d = hs.rhs.shape[-2]
+    if model_axis is None:
+        cols = torch.arange(d, device=hs.rhs.device)
+        valid = None
+    else:
+        size = collectives.group_size(model_axis)
+        if size != model_axis_size:
+            raise ValueError(f"model_axis_size is {model_axis_size}, the model axis has {size}")
+        cols, valid = model_columns(d, collectives.group_rank(model_axis), size,
+                                    hs.rhs.device)
     if full:
         dir_res = solve_dantzig_full(factor, hs.rhs, lam, cfg, rho=rho_beta, state=state_beta)
         theta_res = solve_clime_columns_full(factor, cols, lam_prime, cfg, rho=rho_theta,
@@ -214,17 +245,23 @@ def solves_from_stats(hs: HeadStats, *, lam, lam_prime, cfg: DantzigConfig = Dan
                        iters_beta=None, iters_theta=None)
     if symmetrize:
         theta = symmetrize_min(theta)
-    return WorkerSolves(stats=hs, beta_hat=beta_hat, theta=theta, valid=None, factor=factor,
+    return WorkerSolves(stats=hs, beta_hat=beta_hat, theta=theta, valid=valid, factor=factor,
                         **carries)
 
 
 def apply_correction(theta: torch.Tensor, valid, resid: torch.Tensor,
-                     model_axis: str | None = None) -> torch.Tensor:
-    """The (..., d, K) debias correction ``Theta^T resid`` (unsharded)."""
-    if model_axis is not None or valid is not None:
-        raise NotImplementedError(
-            "the masked model-axis gather comes with the port's mesh slice")
-    return theta.mT @ resid
+                     model_axis=None) -> torch.Tensor:
+    """The (..., d, K) debias correction ``Theta^T resid``.
+
+    With ``model_axis`` (``valid`` the non-pad mask of
+    :func:`model_columns`) each rank computes its (cols, K) slice, pad
+    rows are set to zero, and one tiled gather over the axis puts global
+    column j at row j; the pad rows, at d and beyond, are dropped.
+    """
+    if model_axis is None:
+        return theta.mT @ resid
+    corr = torch.where(valid[:, None], theta.mT @ resid, 0.0)
+    return collectives.all_gather_tiled(corr, model_axis)[:resid.shape[-2]]
 
 
 def worker_debiased(head, *data: torch.Tensor, lam, lam_prime,

@@ -1,4 +1,4 @@
-"""Multi-round refinement around the master's aggregate (twin of ``repro.core.rounds``, simulated).
+"""Multi-round refinement around the master's aggregate (twin of ``repro.core.rounds``).
 
 With anchor_1 = beta_hat (each machine's local estimate), every round
 t = 1..T is the same closed-form map
@@ -14,8 +14,9 @@ both solves (:class:`~repro_torch.core.pipeline.WorkerSolves`): two
 (d, d) x (d, K) products per machine, no eigendecomposition, no ADMM.
 
 The round body is written once, :func:`_refinement_rounds`;
-:class:`_SimRound` supplies the machine-axis operations, as the
-reference's vmap twin does.  It threads the uplink/downlink codecs,
+:class:`_SimRound` supplies the machine-axis operations of the
+simulation, :class:`_MeshRound` the collectives of one rank of the mesh
+(:func:`worker_rounds`), as the reference's twins do.  It threads the uplink/downlink codecs,
 fault injection, screening, masked and trimmed aggregation, bounded
 staleness and the last-good fallback of
 :mod:`repro_torch.core.compression`, :mod:`repro_torch.core.faults`
@@ -25,8 +26,7 @@ device of the solves.
 ``collect_info=True`` runs both solves through the full dispatched
 result, so the returned solves carry warm rho, ADMM states and
 executed iterations; passing them back resumes each solve (K3 with
-``cfg.tol``).  The mesh twin (``_MeshRound``, ``worker_rounds``)
-comes with the port's mesh slice.
+``cfg.tol``).
 """
 
 from __future__ import annotations
@@ -35,9 +35,11 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core import compression as compression_core
 from repro_torch.core import faults as faults_core
 from repro_torch.core import pipeline
+from repro_torch.core import transport as transport_core
 from repro_torch.core.compression import Compression
 from repro_torch.core.dantzig import DantzigConfig
 from repro_torch.core.faults import Aggregation, FaultPlan, FaultSchedule
@@ -46,11 +48,68 @@ from repro_torch.core.transport import CommPlan, Transport, TransportState, reso
 from repro_torch.kernels.dantzig_fused import AdmmState
 
 
-def refine_step(ws: WorkerSolves, anchor: torch.Tensor) -> torch.Tensor:
+def refine_step(ws: WorkerSolves, anchor: torch.Tensor, model_axis=None) -> torch.Tensor:
     """Every machine's closed-form debias correction around ``anchor`` (..., d, K):
-    ``anchor - Theta^T (Sigma anchor - rhs)``."""
+    ``anchor - Theta^T (Sigma anchor - rhs)``; a sharded CLIME block (``model_axis``)
+    reassembles through the masked gather of the one-shot path."""
     resid = ws.stats.sigma @ anchor - ws.stats.rhs
-    return anchor - pipeline.apply_correction(ws.theta, ws.valid, resid)
+    return anchor - pipeline.apply_correction(ws.theta, ws.valid, resid, model_axis)
+
+
+class _MeshRound:
+    """One rank's view of a round: it holds one machine, collectives aggregate."""
+
+    def __init__(self, ws: WorkerSolves, model_axis, data_axes: Sequence):
+        self.ws = ws
+        self.model_axis = model_axis
+        self.data_axes = tuple(data_axes)
+        self.m = collectives.machine_count(self.data_axes)
+
+    def correction(self, anchor):
+        return refine_step(self.ws, anchor, self.model_axis)
+
+    def mean(self, x):
+        return collectives.all_reduce_sum(x, self.data_axes) / self.m
+
+    def sum(self, x):
+        return collectives.all_reduce_sum(x, self.data_axes)
+
+    def stack(self, x):
+        return faults_core.gather_machines(x, self.data_axes)
+
+    def expand(self, w):
+        return w  # this machine's scalar weight broadcasts against (d, K)
+
+    def corrupt(self, code, block):
+        return faults_core.corrupt_block(code, block)
+
+    def screen(self, agg, block):
+        return faults_core.screen_weight(agg, block)
+
+    def broadcast(self, bar):
+        return bar  # already this rank's replicated copy
+
+    def agg_zeros(self, anchor):
+        return torch.zeros_like(anchor)
+
+    def ef(self, comp, message, resid, ref):
+        return compression_core.ef_step(comp, message, resid, ref)
+
+    def corrupt_payload(self, comp, code, payload):
+        return faults_core.corrupt_payload(comp, code, payload)
+
+    def sparse_mean(self, comp, payload, ref):
+        return compression_core.sparse_mean_mesh(comp, payload, ref, self.data_axes)
+
+    def stack_payload(self, comp, payload):
+        return compression_core.gather_payloads(comp, payload, self.data_axes)
+
+    def downlink_wire(self, comp, payload, code):
+        """The aggregator's broadcast: ``code`` is this rank's corruption code, and only the
+        master's survives the master-masked sum, so every receiver reads the same wire."""
+        if code is not None:
+            payload = faults_core.corrupt_payload(comp, code, payload)
+        return transport_core.psum_broadcast(payload, self.data_axes)
 
 
 class _SimRound:
@@ -237,6 +296,81 @@ def _check_plan(faults, expect_shape, where: str) -> None:
                          f"{tuple(faults.live.shape)}")
 
 
+def worker_rounds(head, *data: torch.Tensor, lam, lam_prime, rounds: int = 1,
+                  cfg: DantzigConfig = DantzigConfig(), data_axes: Sequence = (),
+                  model_axis=None, model_axis_size: int = 1, comm: CommPlan | None = None,
+                  compression: Compression | None = None,
+                  ef_residual: torch.Tensor | None = None,
+                  down_residual: torch.Tensor | None = None,
+                  resume_from: torch.Tensor | None = None, faults: FaultPlan | None = None,
+                  staleness: int = 0, aggregation: Aggregation | None = None,
+                  rho_beta=None, rho_theta=None, state_beta: AdmmState | None = None,
+                  state_theta: AdmmState | None = None, collect_info: bool = False,
+                  return_ef_residual: bool = False, return_transport_state: bool = False):
+    """The T-round refined aggregate on one rank of the mesh.
+
+    ``data`` is this rank's machine's samples; ``data_axes`` are the
+    process groups of the mesh's data axes and ``model_axis`` the model
+    axis's (None: this rank solves every CLIME column).  Runs
+    :func:`~repro_torch.core.pipeline.worker_solves` once (warm from the
+    ``rho_*`` / ``state_*`` carries of an earlier call's solves), then
+    ``rounds`` closed-form rounds whose means are collectives over the
+    data axes.  ``comm`` (or the separate ``compression`` /
+    ``staleness`` / ``aggregation``) configures the wire;
+    ``comm.faults`` must be None: the faces materialize the schedule and
+    pass this machine's row as ``faults`` ((rounds,) leaves).
+    ``resume_from`` re-enters a round stream with the carried residuals.
+
+    Every argument is checked before the solves.  Returns
+    ``(beta_bar, solves)``: the replicated (d, K) aggregate, before the
+    hard threshold, and this rank's solves; ``return_ef_residual``
+    appends the uplink residual and ``return_transport_state`` the
+    :class:`~repro_torch.core.transport.TransportState`.
+    """
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    comm = resolve_comm(comm, compression=compression, staleness=staleness,
+                        aggregation=aggregation, where="worker_rounds")
+    if comm.faults is not None:
+        raise TypeError(
+            "worker_rounds: CommPlan.faults is a schedule -- the faces materialize it; pass "
+            "this machine's FaultPlan row via faults=")
+    _check_plan(faults, (rounds,), "worker_rounds")
+    ws = pipeline.worker_solves(head, *data, lam=lam, lam_prime=lam_prime, cfg=cfg,
+                                model_axis=model_axis, model_axis_size=model_axis_size,
+                                rho_beta=rho_beta, rho_theta=rho_theta, state_beta=state_beta,
+                                state_theta=state_theta, full=collect_info)
+    anchor = ws.beta_hat if resume_from is None else resume_from
+    tr = Transport(comm, anchor.shape[0], anchor.shape[1], rounds)
+    anchor, tstate = _refinement_rounds(
+        _MeshRound(ws, model_axis, data_axes), rounds=rounds, anchor=anchor, transport=tr,
+        plan=faults, state=TransportState(ef_residual, down_residual), ref=resume_from)
+    out = [anchor, ws]
+    if return_ef_residual:
+        out.append(tstate.up_residual)
+    if return_transport_state:
+        out.append(tstate)
+    return tuple(out)
+
+
+def _round_plan(m: int, rounds: int, comm, compression, faults, staleness, aggregation,
+                dev: torch.device, where: str):
+    """The simulation's checked arguments: ``(comm, plan)``, the schedule materialized."""
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    if comm is not None and isinstance(faults, FaultSchedule):
+        raise TypeError(
+            f"{where}: pass the fault schedule inside comm=CommPlan(faults=...), "
+            "not alongside it (a materialized FaultPlan may ride next to comm)")
+    comm = resolve_comm(comm, compression=compression, staleness=staleness,
+                        aggregation=aggregation, where=where)
+    plan = faults if faults is not None else comm.faults
+    if isinstance(plan, FaultSchedule):
+        plan = plan.plan(m, rounds, max(comm.staleness, 1), device=dev)
+    _check_plan(plan, (m, rounds), where)
+    return comm, plan
+
+
 def simulate_round_loop(ws: WorkerSolves, *, rounds: int, comm: CommPlan | None = None,
                         compression: Compression | None = None,
                         ef_residual: torch.Tensor | None = None,
@@ -264,19 +398,9 @@ def simulate_round_loop(ws: WorkerSolves, *, rounds: int, comm: CommPlan | None 
     (m, d, K) uplink residual and ``return_transport_state`` the
     :class:`~repro_torch.core.transport.TransportState`.
     """
-    if rounds < 1:
-        raise ValueError(f"rounds must be >= 1, got {rounds}")
     drv = _SimRound(ws)
-    if comm is not None and isinstance(faults, FaultSchedule):
-        raise TypeError(
-            "simulate_round_loop: pass the fault schedule inside comm=CommPlan(faults=...), "
-            "not alongside it (a materialized FaultPlan may ride next to comm)")
-    comm = resolve_comm(comm, compression=compression, staleness=staleness,
-                        aggregation=aggregation, where="simulate_round_loop")
-    plan = faults if faults is not None else comm.faults
-    if isinstance(plan, FaultSchedule):
-        plan = plan.plan(drv.m, rounds, max(comm.staleness, 1), device=ws.beta_hat.device)
-    _check_plan(plan, (drv.m, rounds), "simulate_round_loop")
+    comm, plan = _round_plan(drv.m, rounds, comm, compression, faults, staleness,
+                             aggregation, ws.beta_hat.device, "simulate_round_loop")
     anchor = ws.beta_hat if resume_from is None else drv.broadcast(resume_from)
     tr = Transport(comm, anchor.shape[1], anchor.shape[2], rounds)
     out, tstate = _refinement_rounds(drv, rounds=rounds, anchor=anchor, transport=tr,
@@ -305,15 +429,15 @@ def simulate_multi_round(head, data: Sequence[torch.Tensor], *, lam, lam_prime,
     (``(xs, ys)`` for the binary head, ``(xs, labels)`` for the K-class
     one).  Warm carries are the (m, ...) fields of a previous call's
     returned :class:`~repro_torch.core.pipeline.WorkerSolves`
-    (``collect_info=True`` fills them).  Returns ``(beta_bar, solves)``
-    with ``beta_bar`` (d, K), or (rounds, d, K) with ``return_all_rounds``.
+    (``collect_info=True`` fills them).  Every argument is checked
+    before the solves.  Returns ``(beta_bar, solves)`` with
+    ``beta_bar`` (d, K), or (rounds, d, K) with ``return_all_rounds``.
     """
-    if rounds < 1:
-        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    comm, plan = _round_plan(data[0].shape[0], rounds, comm, compression, faults, staleness,
+                             aggregation, data[0].device, "simulate_multi_round")
     ws = pipeline.worker_solves(head, *data, lam=lam, lam_prime=lam_prime, cfg=cfg,
                                 rho_beta=rho_beta, rho_theta=rho_theta, state_beta=state_beta,
                                 state_theta=state_theta, full=collect_info)
-    out = simulate_round_loop(ws, rounds=rounds, comm=comm, compression=compression,
-                              ef_residual=ef_residual, faults=faults, staleness=staleness,
-                              aggregation=aggregation, return_all_rounds=return_all_rounds)
+    out = simulate_round_loop(ws, rounds=rounds, comm=comm, ef_residual=ef_residual,
+                              faults=plan, return_all_rounds=return_all_rounds)
     return out, ws

@@ -13,14 +13,17 @@
 * :class:`Transport` -- a plan resolved against one run's (d, K, T): a
   :class:`Link` pair per round and the exact per-direction bit totals.
 
-The downlink's mesh wire (``psum_broadcast``) comes with the port's
-mesh slice; in the simulation machine 0 is the aggregator.
+On the mesh the downlink crosses the wire by :func:`psum_broadcast`;
+in the simulation machine 0 is the aggregator.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Sequence
 
+import torch
+
+from repro_torch.core import collectives
 from repro_torch.core import compression as compression_core
 from repro_torch.core.compression import (
     QUANTIZE_MODES,
@@ -231,3 +234,27 @@ class Transport:
         never touches the wire)."""
         return sum(link_bits(down, self.d, self.num_cols)
                    for _, down in self.links if down is not None)
+
+
+def psum_broadcast(payload, data_axes: Sequence):
+    """Broadcast the master's payload leaves over the data axes (process groups).
+
+    Machine 0 of the data axes is the aggregator; every other machine
+    sends exact zeros, so the sum is the master's leaf bit for bit
+    (x + 0.0 == x, except that -0.0 lands as +0.0, as in the
+    reference).  A sum, not a broadcast: it puts the downlink on the
+    wire every machine reads, where a fault can hit it.  int16 indices
+    sum as bytes (one non-zero operand, see
+    :func:`repro_torch.core.collectives.all_reduce_bytes`).
+    """
+    is_master = collectives.machine_index(data_axes) == 0
+
+    def send(leaf):
+        if leaf is None:
+            return None
+        x = leaf if is_master else torch.zeros_like(leaf)
+        if x.dtype == torch.int16:
+            return collectives.all_reduce_bytes(x, data_axes)
+        return collectives.all_reduce_sum(x, data_axes)
+
+    return type(payload)(*(send(leaf) for leaf in payload))

@@ -6,6 +6,12 @@ Libraries go to ``_build/`` next to this file, named by a hash of the
 source and flags, so an edited source is rebuilt and an unchanged one
 is not.  Nothing is built at import time: the first launch builds what
 it needs, and :func:`build` builds several sources in parallel.
+
+A library is compiled under a temporary name and moved into place with
+``os.replace``, so a loader never sees a partial file.  The ranks of a
+mesh (:func:`repro_torch.launch.mesh.run_on_mesh`) only load: the
+parent builds before it spawns them, and each rank calls
+:func:`forbid_builds` first, so many ranks never race one nvcc.
 """
 
 from __future__ import annotations
@@ -25,6 +31,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# set in a mesh rank: a missing library is an error there, not a build
+_LOAD_ONLY = False
+
+
+def forbid_builds() -> None:
+    """Make this process load libraries only: a missing one raises instead of running nvcc."""
+    global _LOAD_ONLY
+    _LOAD_ONLY = True
 
 
 def nvcc() -> str:
@@ -87,6 +101,10 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         target = library_path(name)
         if not target.exists():
+            if _LOAD_ONLY:
+                raise RuntimeError(
+                    f"{target.name} is not built, and this process only loads: build it "
+                    "before the ranks start (build.build())")
             build((name,))
         lib = _LIBS[name] = ctypes.CDLL(str(target))
     return lib

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch import quickstart
 from repro_torch.stats import synthetic
+import test_torch_parity  # noqa: F401  (pins torch to one thread)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -69,8 +70,22 @@ SLICE_MODULES = ["repro_torch.core.multiclass", "repro_torch.core.compression",
                  "repro_torch.core.rounds"]
 
 
+MESH_MODULES = ["repro_torch.core.collectives", "repro_torch.core.distributed",
+                "repro_torch.launch.mesh", "repro_torch.launch.mesh_cases",
+                "repro_torch.mesh_distributed_lda"]
+
+
 @pytest.mark.parametrize("name", SLICE_MODULES)
 def test_multiclass_and_rounds_modules_stand_alone_and_default_to_the_card(name):
+    _stands_alone_and_defaults_to_the_card(name)
+
+
+@pytest.mark.parametrize("name", MESH_MODULES)
+def test_mesh_modules_stand_alone_and_default_to_the_card(name):
+    _stands_alone_and_defaults_to_the_card(name)
+
+
+def _stands_alone_and_defaults_to_the_card(name):
     # each new module is one of the guarded files, and every function or
     # method of it that takes a device takes "cuda" unless told otherwise
     module = importlib.import_module(name)

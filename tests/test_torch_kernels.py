@@ -30,6 +30,7 @@ from repro_torch.kernels import _launch, build, ops, ref
 from repro_torch.kernels import dantzig_fused as fused_model
 from repro_torch.kernels import gram as gram_module
 from repro_torch.kernels import soft_threshold as shrink_module
+import test_torch_parity  # noqa: F401  (pins torch to one thread)
 
 
 def _t(a):

@@ -8,6 +8,13 @@ the pin is ``SPREAD_FACTOR`` times it, measured on the test's own
 inputs (:func:`reference_spread`).  The perturbations are symmetric
 (Sigma stays symmetric), each entry moved one ulp up or down by a fixed
 numpy draw, so a test's pin is the same on every run of one machine.
+
+Every ``tests/test_torch_*.py`` module imports this one, which pins
+torch's intra-op thread pool to one thread at import.  The suite runs
+under several pytest workers at once, and each worker's default pool
+(one thread a core) oversubscribes the CPU by the worker count; one
+thread also fixes how a batched product splits its work, so a batched
+solve equals the same solves one by one.
 """
 
 from typing import Any, NamedTuple
@@ -15,8 +22,11 @@ from typing import Any, NamedTuple
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core.pipeline import HeadStats
+
+torch.set_num_threads(1)
 
 # How many times the reference's own one-ulp spread a port result may sit from it.
 SPREAD_FACTOR = 2.0

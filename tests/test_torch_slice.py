@@ -24,12 +24,13 @@ from repro_torch.core import classifier, pipeline, slda
 from repro_torch.core.clime import solve_clime, symmetrize_min
 from repro_torch.core.distributed import simulated_debiased_mean, simulated_distributed_slda
 from repro_torch.stats import synthetic
+import test_torch_parity  # noqa: F401  (pins torch to one thread)
 
 D, M, N_PER = 32, 3, 80
 
 
-def _t(a):
-    return interop.tensor(a, device="cpu")
+def _t(a, dtype=torch.float32):
+    return interop.tensor(a, device="cpu", dtype=dtype)
 
 
 def _draws(seed=0, n_test=400):
@@ -187,16 +188,24 @@ def test_classifier_metrics_match_reference():
 
 
 @pytest.mark.parametrize("kw", [dict(rounds=0), dict(staleness=-1), dict(comm="plan")])
-def test_later_slice_options_raise(kw):
-    # rounds and every comms option are ported (tests/test_torch_rounds.py);
-    # what stays refused is a value the reference refuses too, and the
-    # model-axis (mesh) worker of a later slice
+def test_later_slice_options_raise(kw, monkeypatch):
+    # rounds, every comms option and the model-axis worker are ported
+    # (tests/test_torch_rounds.py, tests/test_torch_mesh.py); what stays
+    # refused is a value the reference refuses too, and it is refused
+    # before any solve, as the reference's jitted faces refuse it at trace
+    # time; the model axis with symmetrize=True is refused as in the
+    # reference (the shards cannot pair theta_ij with theta_ji)
     _, xs, ys, _, _ = _draws()
+
+    def no_solve(*args, **kwargs):
+        raise AssertionError("a solve ran before the arguments were checked")
+
+    monkeypatch.setattr(pipeline, "solves_from_stats", no_solve)
     with pytest.raises((ValueError, TypeError)):
         simulated_distributed_slda(_t(xs), _t(ys), 0.2, 0.2, 0.05, **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="symmetrize"):
         pipeline.worker_solves(pipeline.BinaryHead(), _t(xs), _t(ys), lam=0.2, lam_prime=0.2,
-                               model_axis="model")
+                               model_axis="model", symmetrize=True)
 
 
 def test_quickstart_main_runs_on_cpu(capsys):
@@ -206,3 +215,51 @@ def test_quickstart_main_runs_on_cpu(capsys):
     assert all(np.isfinite(v).all() and 0 <= v[0] <= 1 and 0 <= v[3] <= 1
                for v in map(np.asarray, rows.values()))
     assert "distributed (paper)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("d,block,rho", [(25, 10, 0.5), (30, 7, 0.3), (8, 10, 0.9)])
+def test_block_covariance_equals_reference(d, block, rho):
+    np.testing.assert_array_equal(synthetic.block_covariance(d, block, rho),
+                                  jax_synthetic.block_covariance(d, block, rho))
+
+
+def test_block_design_problem_equals_reference_bit_for_bit():
+    ref = jax_synthetic.make_problem(d=D, n_signal=6, rho=0.8, design="block")
+    port = synthetic.make_problem(d=D, n_signal=6, rho=0.8, design="block", device="cpu")
+    for name in ref._fields:
+        np.testing.assert_array_equal(getattr(port, name).numpy(), np.asarray(getattr(ref, name)))
+    assert not np.array_equal(port.sigma.numpy(), synthetic.make_problem(
+        d=D, n_signal=6, rho=0.8, device="cpu").sigma.numpy())
+    with pytest.raises(ValueError, match="design"):
+        synthetic.make_problem(d=D, design="toeplitz", device="cpu")
+
+
+def test_heart_disease_surrogate_matches_reference_on_its_draws():
+    # the reference's own draws, taken from its key as it takes them,
+    # go through the port's assembly; the port's sampler draws the same
+    # kinds on a torch.Generator
+    import jax
+
+    n, d, n_sites = 300, 22, 4
+    key = jax.random.PRNGKey(3)
+    want_z, want_labels, want_sites = jax_synthetic.heart_disease_surrogate(key, n, d, n_sites)
+    kp, ks, kz = jax.random.split(key, 3)
+    kl, kn = jax.random.split(kz)
+    labels = np.asarray(jax.random.bernoulli(kl, 0.5, (n,)).astype(jnp.int32))
+    noise = np.asarray(jax.random.normal(kn, (n, d)))
+    sites = np.asarray(jax.random.randint(ks, (n,), 0, n_sites))
+    shift = np.asarray(0.15 * jax.random.normal(kp, (n_sites, d)))
+    np.testing.assert_array_equal(labels, np.asarray(want_labels))
+    np.testing.assert_array_equal(sites, np.asarray(want_sites))
+    problem = synthetic.make_problem(d=d, n_signal=6, rho=0.85, signal=0.8, device="cpu")
+    z = synthetic.surrogate_from_draws(problem, _t(labels, torch.int32), _t(noise),
+                                       _t(sites, torch.int64), _t(shift))
+    want_z = np.asarray(want_z)
+    np.testing.assert_allclose(z.numpy(), want_z, rtol=0, atol=1e-6 * np.abs(want_z).max())
+
+    z, labels, sites = synthetic.heart_disease_surrogate(torch.Generator().manual_seed(0), n, d,
+                                                         n_sites, device="cpu")
+    again = synthetic.heart_disease_surrogate(torch.Generator().manual_seed(0), n, d, n_sites,
+                                              device="cpu")
+    assert z.shape == (n, d) and z.dtype == torch.float32 and torch.equal(z, again[0])
+    assert set(labels.tolist()) == {0, 1} and set(sites.tolist()) == set(range(n_sites))
