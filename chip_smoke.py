@@ -326,31 +326,6 @@ def fixed_kernel_work(m: int, d: int, k: int, iters: int) -> tuple[int, int]:
             4 * (2 * m * d * d + m * d + 2 * m * d * k + 2 * m * k))
 
 
-@contextlib.contextmanager
-def shape_tally(counter: collections.Counter):
-    """Within the block, tally the (kernel, m, d, k) of every K2 and K3 launch.
-
-    The tally sits below the wrappers' launch counters (``ops.LAUNCHES``,
-    which stay the evidence of a launch) and only splits them by shape.
-    """
-    from repro_torch.kernels import ops
-
-    k2, k3 = ops.dantzig_fused_cuda, ops.dantzig_fused_state_cuda
-
-    def tally(name, launcher):
-        def launch(a, q, inv_eig, b, *args, **kw):
-            counter[(name, *b.shape)] += 1
-            return launcher(a, q, inv_eig, b, *args, **kw)
-        return launch
-
-    ops.dantzig_fused_cuda = tally("dantzig_fused", k2)
-    ops.dantzig_fused_state_cuda = tally("dantzig_fused_state", k3)
-    try:
-        yield counter
-    finally:
-        ops.dantzig_fused_cuda, ops.dantzig_fused_state_cuda = k2, k3
-
-
 def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
     """True where got is want bit for bit, the sign of zero included, and NaN where want is
     NaN (a NaN's payload aside); ``torch.equal`` and ``assert_close`` take -0 for +0."""
@@ -614,14 +589,17 @@ def mesh_g_stats(dev) -> SimpleNamespace:
                            lam_k=0.3 * math.sqrt(math.log(d) / n) * b1k)
 
 
-def mesh_summary(tag: str, reports: dict, spawn_s: float, card: str) -> collections.Counter:
+def mesh_summary(tag: str, reports: dict, spawn_s: float, card: str
+                 ) -> tuple[collections.Counter, collections.Counter]:
     """Print each case's per-rank numbers and check its result replicated; returns the
-    kernel launches summed over ranks and cases."""
-    total = collections.Counter()
+    kernel launches summed over ranks and cases, and the same launches by
+    (kernel, *shape), as each rank counted them."""
+    total, shapes = collections.Counter(), collections.Counter()
     print(f"[mesh {tag}] spawn + process group + mesh {spawn_s:.2f} s ({card})")
     for name, rep in reports.items():
-        for counts in rep["launches"]:
+        for counts, by_shape in zip(rep["launches"], rep["launch_shapes"]):
             total.update(counts)
+            shapes.update(by_shape)
         compute = max(w - c for w, c in zip(rep["wall_s"], rep["collective_s"]))
         launches = sorted({json.dumps(c, sort_keys=True) for c in rep["launches"]})
         print(f"  {name}: slowest rank's compute {compute:.4f} s, slowest rank's collectives "
@@ -629,7 +607,7 @@ def mesh_summary(tag: str, reports: dict, spawn_s: float, card: str) -> collecti
               f"on the data axis {sorted(set(rep['data_bits']))}, the model axis "
               f"{sorted(set(rep['model_bits']))}; launches a rank {', '.join(launches)}")
         check(all(rep["same_as_rank0"]), f"run {tag} {name}: the ranks' results differ")
-    return total
+    return total, shapes
 
 
 def ranks_launched(tag: str, name: str, rep: dict, **want) -> None:
@@ -822,6 +800,21 @@ def main() -> None:
         check(torch.equal(got, got.mT), f"K1 {label}: not exactly symmetric")
     print(f"[kernels] K1 gram at {len(k1_cases)} edge shapes (d in 1, 3, 4, 200, 203, 256 x "
           f"n in 1, 31, 250, and misaligned): largest err / max |G| {worst:.3e}")
+    # K1 at the launch shapes of the mesh runs, one machine a rank: a class's
+    # rows of run (f) (250, d = 200), (g) (250, d = 128) and (h) (2,500, d = 200)
+    k1_gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    k1_mesh = {}
+    for n_, d_ in ((n1, D), (250, 128), (SYNTHETIC.N // MESH_H[0] // 2, D)):
+        x = torch.randn(1, n_, d_, generator=k1_gen, device=dev)
+        mu = x.mean(1)
+        got, want = gram_cuda(x, mu), ref.gram_ref(x, mu)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        check(err <= 1e-5 * scale, f"K1 mesh (1, {n_}, {d_}): err {err} > 1e-5 * {scale}")
+        check(torch.equal(got, got.mT), f"K1 mesh (1, {n_}, {d_}): not exactly symmetric")
+        k1_mesh[(1, n_, d_)] = {"x": x, "mu": mu, "max_abs_err": err, "max_abs_G": scale}
+    print("[kernels] K1 gram at the mesh launch shapes: " + ", ".join(
+        f"{shape} err {v['max_abs_err']:.3e} (max |G| {v['max_abs_G']:.3e})"
+        for shape, v in k1_mesh.items()))
 
     stats = pipeline.suff_stats(xs, ys, use_kernel=False)
     factor = spectral_factor(stats.sigma)
@@ -1294,7 +1287,7 @@ def main() -> None:
     check(all(fold_same), "lambda path: the tol=None fold differs from single K2 solves")
 
     # ---- 3 (d). the multiclass design (configuration MULTICLASS) ----------------
-    tally = collections.Counter()  # K2/K3 launches of runs (d) and (e), by shape
+    tally = collections.Counter()  # kernel launches of runs (d) and (e), by shape
     mc_cfg = DantzigConfig(max_iters=MULTICLASS.max_iters, fused=True)
     mc_plain_cfg = DantzigConfig(max_iters=MULTICLASS.max_iters, adapt_rho=False)
 
@@ -1313,11 +1306,11 @@ def main() -> None:
     ops.reset_launches()
     simulated_distributed_mc_slda(mc.xs, mc.labels, K_MC, mc.lam, mc.lam, mc.t, mc_cfg)
     mc_dist_launches = dict(ops.LAUNCHES)
-    with shape_tally(tally):
-        ops.reset_launches()
-        mc_times = {}
-        mc_betas = mc_estimators(mc_cfg, mc_times)
-        mc_launches = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    mc_times = {}
+    mc_betas = mc_estimators(mc_cfg, mc_times)
+    mc_launches = dict(ops.LAUNCHES)
+    tally.update(ops.LAUNCH_SHAPES)
     for name, n in mc_launches.items():
         launches[name] += n
     ops.reset_launches()
@@ -1348,19 +1341,19 @@ def main() -> None:
         return mc_debiased_local_path(mc.xs, mc.labels, K_MC, mc.lams, None, mc_path_cfg, **warm)
 
     mc_sweeps, mc_sweep_s, mc_sweep_launches = {}, {}, {}
-    with shape_tally(tally):
-        for name, warm in (("cold", {}), ("warm", None)):
-            if warm is None:
-                warm = dict(rho_beta=mc_sweeps["cold"].rho_beta,
-                            state_beta=mc_sweeps["cold"].state_beta)
-            ops.reset_launches()
-            mc_sweeps[name], mc_sweep_s[name] = sync_time(lambda: mc_sweep(**warm))
-            mc_sweep_launches[name] = dict(ops.LAUNCHES)
-            for kernel, n in mc_sweep_launches[name].items():
-                launches[kernel] += n
-            check(mc_sweep_launches[name]["dantzig_fused_state"] == 2
-                  and mc_sweep_launches[name]["dantzig_fused"] == 0,
-                  f"run (d) lambda path {name}: launched {mc_sweep_launches[name]}, not two K3")
+    for name, warm in (("cold", {}), ("warm", None)):
+        if warm is None:
+            warm = dict(rho_beta=mc_sweeps["cold"].rho_beta,
+                        state_beta=mc_sweeps["cold"].state_beta)
+        ops.reset_launches()
+        mc_sweeps[name], mc_sweep_s[name] = sync_time(lambda: mc_sweep(**warm))
+        mc_sweep_launches[name] = dict(ops.LAUNCHES)
+        tally.update(ops.LAUNCH_SHAPES)
+        for kernel, n in mc_sweep_launches[name].items():
+            launches[kernel] += n
+        check(mc_sweep_launches[name]["dantzig_fused_state"] == 2
+              and mc_sweep_launches[name]["dantzig_fused"] == 0,
+              f"run (d) lambda path {name}: launched {mc_sweep_launches[name]}, not two K3")
     mc_iters = {name: int(r.iters.sum()) for name, r in mc_sweeps.items()}
 
     def mc_grid_rows(result):
@@ -1402,21 +1395,24 @@ def main() -> None:
                                     rounds=T_RD, cfg=cfg, collect_info=True, **warm)
 
     rd_launch = {}
-    with shape_tally(tally):
+    ops.reset_launches()
+    (_, rd_ws), rd_solve_s = sync_time(lambda: simulate_multi_round(
+        pipeline.BinaryHead(), (rd.xs, rd.ys), lam=rd.lam, lam_prime=rd.lam, cfg=rd_cfg))
+    rd_launch["solves"] = dict(ops.LAUNCHES)
+    tally.update(ops.LAUNCH_SHAPES)
+    ops.reset_launches()
+    rd_cases, rd_loop_s = sync_time(lambda: round_cases(rd_ws))
+    check(not any(ops.LAUNCHES.values()), f"run (e): the round schedules launched {ops.LAUNCHES}")
+    reentries, reentry_s = {}, {}
+    for name in ("cold", "warm"):
+        warm = {} if name == "cold" else {
+            key: getattr(reentries["cold"][1], key)
+            for key in ("rho_beta", "rho_theta", "state_beta", "state_theta")}
         ops.reset_launches()
-        (_, rd_ws), rd_solve_s = sync_time(lambda: simulate_multi_round(
-            pipeline.BinaryHead(), (rd.xs, rd.ys), lam=rd.lam, lam_prime=rd.lam, cfg=rd_cfg))
-        rd_launch["solves"] = dict(ops.LAUNCHES)
-        rd_cases, rd_loop_s = sync_time(lambda: round_cases(rd_ws))
-        reentries, reentry_s = {}, {}
-        for name in ("cold", "warm"):
-            warm = {} if name == "cold" else {
-                key: getattr(reentries["cold"][1], key)
-                for key in ("rho_beta", "rho_theta", "state_beta", "state_theta")}
-            ops.reset_launches()
-            reentries[name], reentry_s[name] = sync_time(
-                lambda: reentry(pipeline.BinaryHead(), rd_tol_cfg, **warm))
-            rd_launch[f"{name} re-entry"] = dict(ops.LAUNCHES)
+        reentries[name], reentry_s[name] = sync_time(
+            lambda: reentry(pipeline.BinaryHead(), rd_tol_cfg, **warm))
+        rd_launch[f"{name} re-entry"] = dict(ops.LAUNCHES)
+        tally.update(ops.LAUNCH_SHAPES)
     for counts in rd_launch.values():
         for kernel, n in counts.items():
             launches[kernel] += n
@@ -1484,22 +1480,19 @@ def main() -> None:
     from repro_torch.launch.mesh_cases import MeshCase, run_cases
 
     card_line = smi_line()
-    mesh_tally = collections.Counter()  # rank launches of runs (f)-(h), by (kernel, m, d, k)
-    mesh_launches = collections.Counter()
+    # rank launches of runs (f)-(h), summed over the ranks, and by (kernel, *shape)
+    mesh_launches, mesh_tally = collections.Counter(), collections.Counter()
 
-    def spread_over(shapes, kernel, rep, names):
-        """Each rank's launches of ``kernel`` in the cases ``names``, one per shape in turn."""
-        for name in names:
-            for counts in rep[name]["launches"]:
-                for shape in shapes:
-                    mesh_tally[(kernel, *shape)] += counts[kernel] // len(shapes)
+    def summarize(tag, reports, spawn_s):
+        total, shapes = mesh_summary(tag, reports, spawn_s, card_line)
+        mesh_launches.update(total)
+        mesh_tally.update(shapes)
 
     def mesh_run(tag, shape, arrays, cases):
         spawned = time.time()
         reports = run_on_mesh(run_cases, *shape, arrays, cases, backend="gloo",
                               timeout=MESH_TIMEOUT)
-        spawn_s = max(reports.pop("_started")) - spawned
-        mesh_launches.update(mesh_summary(tag, reports, spawn_s, card_line))
+        summarize(tag, reports, max(reports.pop("_started")) - spawned)
         return reports
 
     def gaps(tag, got, want):
@@ -1560,19 +1553,23 @@ def main() -> None:
     check(max(int8_bits) <= INT8_SHARE * min(dense_bits),
           f"run (f): top-20% int8 carried {max(int8_bits)} bits, over {INT8_SHARE} of dense")
     check(it_warm < it_cold, f"run (f): the warm re-entry ran {it_warm} iterations, cold {it_cold}")
+    # rank r is machine r (model = 1): each column's block may end one
+    # residual check apart from the batched simulation's
+    slack = CHECK_EVERY * M * (1 + D)
+    check(all(abs(got - want) <= slack for got, want in zip((it_cold, it_warm), sim_iters)),
+          f"run (f): the re-entry ran {[it_cold, it_warm]} column-iterations, the simulated "
+          f"face {sim_iters} (at most {slack} apart)")
     for name in f_kw:
         ranks_launched("(f)", name, f_rep[name], gram=None, dantzig_fused=2,
                        dantzig_fused_state=0)
     ranks_launched("(f)", "re-entry", f_rep["re-entry"], dantzig_fused=0, dantzig_fused_state=4)
-    spread_over([(1, D, 1), (1, D, D)], "dantzig_fused", f_rep, f_kw)
-    spread_over([(1, D, 1), (1, D, D)], "dantzig_fused_state", f_rep, ["re-entry"])
 
     # (g): the mesh example at its own sizes, fused
     g_cfg = DantzigConfig(max_iters=ITERS, fused=True)
     print(f"[mesh (g)] python -m repro_torch.mesh_distributed_lda, {g_cfg}:")
     g = mesh_distributed_lda.main(device=dev, cfg=g_cfg)
     g_rep = {k: v for k, v in g["reports"].items() if k != "_started"}
-    mesh_launches.update(mesh_summary("(g)", g_rep, g["spawn_s"], card_line))
+    summarize("(g)", g_rep, g["spawn_s"])
     g_sim = simulated_distributed_slda(g["xs"], g["ys"], g["lam"], g["lam"], g["t"], g_cfg)
     g_sim_k = simulated_distributed_mc_slda(g["mxs"], g["mlabels"], 4, g["lam_k"], g["lam_k"],
                                             g["t_k"], g_cfg)
@@ -1588,8 +1585,6 @@ def main() -> None:
               accuracy=True)
     ranks_launched("(g)", "binary", g_rep["binary"], gram=None, dantzig_fused=2)
     ranks_launched("(g)", "multiclass", g_rep["multiclass"], dantzig_fused=2)
-    spread_over([(1, 128, 1), (1, 128, cols_g)], "dantzig_fused", g_rep, ["binary"])
-    spread_over([(1, 128, 4), (1, 128, cols_g)], "dantzig_fused", g_rep, ["multiclass"])
 
     # (h): the remainder case, N = 10,000 over (data=2, model=3): fused, and K4's scan
     h_kw = {"one-shot fused": f_cfg,
@@ -1608,9 +1603,15 @@ def main() -> None:
     ranks_launched("(h)", "one-shot fused", h_rep["one-shot fused"], gram=None, dantzig_fused=2)
     ranks_launched("(h)", "one-shot use_kernel (K4)", h_rep["one-shot use_kernel (K4)"],
                    gram=None, soft_threshold=None, dantzig_fused=0)
-    spread_over([(1, D, 1), (1, D, cols_h)], "dantzig_fused", h_rep, ["one-shot fused"])
     for kernel in ops.LAUNCHES:
         check(mesh_launches[kernel] > 0, f"runs (f)-(h): no rank launched {kernel}")
+    # every K1, K2 and K3 shape a rank launched was held against its plain version
+    # in phase 2 (K4 is elementwise: its mesh shapes are only counted)
+    held = {("gram", *shape) for shape in k1_mesh} | {
+        (kernel, *b.shape) for _, b, _ in mesh_ops.values()
+        for kernel in ("dantzig_fused", "dantzig_fused_state")}
+    unheld = sorted(key for key in mesh_tally if key[0] != "soft_threshold" and key not in held)
+    check(not unheld, f"runs (f)-(h): launch shapes held against no plain version: {unheld}")
     for kernel, n in mesh_launches.items():
         launches[kernel] += n
     print(f"[mesh] rank launches of runs (f)-(h), all ranks: {json.dumps(mesh_launches)}; by "
@@ -1668,11 +1669,18 @@ def main() -> None:
                             **extra))
 
     n = n1
-    # K1 on one rank's machine (m = 1, n1 = 250), as every rank of run (f) launches it
-    x_one, mu_one = xs[:1].contiguous(), mu1[:1].contiguous()
-    gram_mesh = {"shape": [1, n1, D], "launches": mesh_launches["gram"],
-                 "ms": cuda_ms(lambda: gram_cuda(x_one, mu_one), 50),
-                 "bound_ms": bound(n1 * D * (D + 1) + n1 * D, 4 * (n1 * D + D + D * D))[0]}
+    # K1 at each shape the mesh ranks launched it at (m = 1), on phase 2's inputs
+    gram_mesh = []
+    for (kernel, *shape), n_launch in sorted(mesh_tally.items()):
+        if kernel != "gram":
+            continue
+        held_k1 = k1_mesh[tuple(shape)]
+        _, n_, d_ = shape
+        gram_mesh.append({"shape": shape, "launches": n_launch,
+                          "max_abs_err": held_k1["max_abs_err"],
+                          "ms": cuda_ms(lambda: gram_cuda(held_k1["x"], held_k1["mu"]), 50),
+                          "bound_ms": bound(n_ * d_ * (d_ + 1) + n_ * d_,
+                                            4 * (n_ * d_ + d_ + d_ * d_))[0]})
     row("gram", "cuda", "repro_torch/kernels/csrc/gram.cu", "src/repro/kernels/gram.py:28",
         cuda_ms(lambda: gram_cuda(xs, mu1), 50), cuda_ms(lambda: ref.gram_ref(xs, mu1), 50),
         M * (n * D * (D + 1) + n * D), 4 * (M * n * D + M * D + M * D * D), "gram library bmm",

@@ -42,9 +42,9 @@ from repro_torch.core import collectives
 from repro_torch.core import rounds as rounds_core
 from repro_torch.core import slda
 from repro_torch.core.dantzig import DantzigConfig
-from repro_torch.core.faults import FaultPlan, FaultSchedule
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.pipeline import BinaryHead, MulticlassHead
-from repro_torch.core.transport import CommPlan, resolve_comm
+from repro_torch.core.transport import CommPlan
 from repro_torch.launch.mesh import axis_size, mesh_device
 
 
@@ -54,17 +54,11 @@ def _materialize_plan(faults, mesh, data_axes, rounds: int, staleness: int,
 
     A schedule is drawn here, the same on every rank; a plan is checked.
     """
-    if faults is None:
-        return None
     m = 1
     for ax in data_axes:
         m *= axis_size(mesh, ax)
-    if isinstance(faults, FaultSchedule):
-        faults = faults.plan(m, rounds, max(staleness, 1), device=device)
-    if tuple(faults.live.shape) != (m, rounds):
-        raise ValueError(f"FaultPlan leaves must be ({m}, {rounds}) for this mesh, "
-                         f"got {tuple(faults.live.shape)}")
-    return faults
+    return rounds_core._round_plan(m, rounds, None, None, faults, staleness, None, device,
+                                   "_materialize_plan")[1]
 
 
 class RankView(NamedTuple):
@@ -104,16 +98,12 @@ def _mesh_setup(mesh, data_axes, model_axis, comm, faults, compression, stalenes
     if comm is not None and faults is not None:
         raise TypeError(f"{where}: pass the fault schedule inside comm=CommPlan(faults=...), "
                         "not alongside it")
-    comm = resolve_comm(comm, compression=compression, staleness=staleness,
-                        aggregation=aggregation, where=where)
-    if rounds < 1:
-        raise ValueError(f"rounds must be >= 1, got {rounds}")
     view = rank_view(mesh, data_axes, model_axis)
-    plan = _materialize_plan(faults if faults is not None else comm.faults, mesh, data_axes,
-                             rounds, comm.staleness, view.device)
+    comm, plan = rounds_core._round_plan(view.m, rounds, comm, compression, faults, staleness,
+                                         aggregation, view.device, where)
     row = None if plan is None else FaultPlan(*(leaf[view.machine].to(view.device)
                                                 for leaf in plan))
-    return view, comm._replace(faults=None), row
+    return view, comm, row
 
 
 def distributed_slda_shardmap(mesh, x, y, lam, lam_prime, t,

@@ -327,15 +327,8 @@ def worker_rounds(head, *data: torch.Tensor, lam, lam_prime, rounds: int = 1,
     appends the uplink residual and ``return_transport_state`` the
     :class:`~repro_torch.core.transport.TransportState`.
     """
-    if rounds < 1:
-        raise ValueError(f"rounds must be >= 1, got {rounds}")
-    comm = resolve_comm(comm, compression=compression, staleness=staleness,
-                        aggregation=aggregation, where="worker_rounds")
-    if comm.faults is not None:
-        raise TypeError(
-            "worker_rounds: CommPlan.faults is a schedule -- the faces materialize it; pass "
-            "this machine's FaultPlan row via faults=")
-    _check_plan(faults, (rounds,), "worker_rounds")
+    comm, faults = _round_plan(None, rounds, comm, compression, faults, staleness, aggregation,
+                               None, "worker_rounds")
     ws = pipeline.worker_solves(head, *data, lam=lam, lam_prime=lam_prime, cfg=cfg,
                                 model_axis=model_axis, model_axis_size=model_axis_size,
                                 rho_beta=rho_beta, rho_theta=rho_theta, state_beta=state_beta,
@@ -353,9 +346,17 @@ def worker_rounds(head, *data: torch.Tensor, lam, lam_prime, rounds: int = 1,
     return tuple(out)
 
 
-def _round_plan(m: int, rounds: int, comm, compression, faults, staleness, aggregation,
-                dev: torch.device, where: str):
-    """The simulation's checked arguments: ``(comm, plan)``, the schedule materialized."""
+def _round_plan(m: int | None, rounds: int, comm, compression, faults, staleness,
+                aggregation, dev: torch.device | None, where: str):
+    """The checked round arguments, before any solve: ``(comm, plan)``.
+
+    The one copy of the rules that the simulated faces, the mesh faces
+    and :func:`worker_rounds` share.  For ``m`` machines a schedule (in
+    ``faults`` or ``comm.faults``) is materialized on ``dev`` to an
+    (m, rounds) plan; ``m`` None is one mesh rank, which takes only its
+    machine's materialized (rounds,) row.  The returned comm carries no
+    faults: the plan goes beside it.
+    """
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     if comm is not None and isinstance(faults, FaultSchedule):
@@ -365,10 +366,17 @@ def _round_plan(m: int, rounds: int, comm, compression, faults, staleness, aggre
     comm = resolve_comm(comm, compression=compression, staleness=staleness,
                         aggregation=aggregation, where=where)
     plan = faults if faults is not None else comm.faults
-    if isinstance(plan, FaultSchedule):
-        plan = plan.plan(m, rounds, max(comm.staleness, 1), device=dev)
-    _check_plan(plan, (m, rounds), where)
-    return comm, plan
+    if m is None:
+        if comm.faults is not None:
+            raise TypeError(
+                f"{where}: CommPlan.faults is a schedule -- the faces materialize it; pass "
+                "this machine's FaultPlan row via faults=")
+        _check_plan(plan, (rounds,), where)
+    else:
+        if isinstance(plan, FaultSchedule):
+            plan = plan.plan(m, rounds, max(comm.staleness, 1), device=dev)
+        _check_plan(plan, (m, rounds), where)
+    return comm._replace(faults=None), plan
 
 
 def simulate_round_loop(ws: WorkerSolves, *, rounds: int, comm: CommPlan | None = None,

@@ -8,9 +8,14 @@ falls back from the card to the plain version.
 
 ``LAUNCHES`` counts the kernel launches each wrapper made; it is the
 evidence that a run on the card went through the kernels.
+``LAUNCH_SHAPES`` splits the same launches by the kernel's operand
+shape, ``(name, m, rows, cols)``: x (m, n, d) for ``gram``, b
+(m, d, k) for the ADMM kernels, x for ``soft_threshold``.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -27,11 +32,18 @@ from repro_torch.kernels.soft_threshold import soft_threshold_cuda
 from repro_torch.kernels.spectral import as_spectral_factor
 
 LAUNCHES = {"gram": 0, "dantzig_fused": 0, "dantzig_fused_state": 0, "soft_threshold": 0}
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_SHAPES.clear()
+
+
+def _count(name: str, operand: torch.Tensor) -> None:
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, *operand.shape)] += 1
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -47,8 +59,9 @@ def gram(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     if not _on_card(x):
         return ref.gram_ref(x, mu)
     *batch, n, d = x.shape
-    out = gram_cuda(x.reshape(-1, n, d).contiguous(), mu.reshape(-1, d).contiguous())
-    LAUNCHES["gram"] += 1
+    x = x.reshape(-1, n, d).contiguous()
+    out = gram_cuda(x, mu.reshape(-1, d).contiguous())
+    _count("gram", x)
     return out.reshape(*batch, d, d)
 
 
@@ -57,7 +70,7 @@ def soft_threshold(x: torch.Tensor, t) -> torch.Tensor:
     if not _on_card(x):
         return ref.soft_threshold_ref(x, t)
     out = soft_threshold_cuda(x.contiguous(), t)
-    LAUNCHES["soft_threshold"] += 1
+    _count("soft_threshold", x)
     return out
 
 
@@ -93,9 +106,9 @@ def dantzig_fused(a, b: torch.Tensor, lam, *, iters: int = 500, rho=1.0,
     if not _on_card(b):
         return ref.dantzig_fused_ref(factor.sigma, factor.q, factor.inv_eig, b, lam,
                                      iters=iters, rho=rho, alpha=alpha)
-    out = dantzig_fused_cuda(*_machines(factor, b, lam, rho), iters=iters, alpha=alpha,
-                             block_k=block_k)
-    LAUNCHES["dantzig_fused"] += 1
+    operands = _machines(factor, b, lam, rho)
+    out = dantzig_fused_cuda(*operands, iters=iters, alpha=alpha, block_k=block_k)
+    _count("dantzig_fused", operands[3])
     return out.reshape(*batch, d, k)
 
 
@@ -126,8 +139,9 @@ def _dantzig_fused_state(factor, b, lam, iters, rho, alpha, bk, tol, check_every
     if state is not None:
         leaves = AdmmState(*(leaf.to(torch.float32).expand(*batch, d, k).reshape(-1, d, k)
                              .contiguous() for leaf in state))
-    out = dantzig_fused_state_cuda(*_machines(factor, b, lam, rho), leaves, iters=iters,
-                                   alpha=alpha, tol=tol, check_every=check_every, block_k=bk)
-    LAUNCHES["dantzig_fused_state"] += 1
+    operands = _machines(factor, b, lam, rho)
+    out = dantzig_fused_state_cuda(*operands, leaves, iters=iters, alpha=alpha, tol=tol,
+                                   check_every=check_every, block_k=bk)
+    _count("dantzig_fused_state", operands[3])
     fstate = AdmmState(*(leaf.reshape(*batch, d, k) for leaf in out.state))
     return FusedSolveResult(fstate.w, fstate, out.iters.reshape(*batch, -1))

@@ -3,10 +3,11 @@
 :func:`run_cases` is the rank function of a checking run
 (``run_on_mesh(run_cases, data, model, arrays, cases, ...)``): one
 spawn of the mesh serves every case.  For each :class:`MeshCase` every
-rank resets its kernel launch counts (:data:`repro_torch.kernels.ops.LAUNCHES`)
-and its wire tally (:data:`repro_torch.core.collectives.TALLY`), runs
-the face, and rank 0 collects, beside the replicated result, each
-rank's launches, the bits its data- and model-axis collectives put on
+rank resets its kernel launch counts (:data:`repro_torch.kernels.ops.LAUNCHES`
+and their split by shape, ``LAUNCH_SHAPES``) and its wire tally
+(:data:`repro_torch.core.collectives.TALLY`), runs the face, and rank 0
+collects, beside the replicated result, each rank's launches and
+launch shapes, the bits its data- and model-axis collectives put on
 the wire, its seconds in collectives and its wall seconds.
 """
 
@@ -137,8 +138,8 @@ def run_cases(mesh, arrays: dict, cases) -> dict[str, dict[str, Any]]:
 
     A report holds ``out`` (rank 0's result, on the CPU; every face's
     result is replicated) and, one entry a rank, ``launches``,
-    ``data_bits``, ``model_bits``, ``collective_s``, ``wall_s`` and
-    ``same_as_rank0`` (the rank's result equals rank 0's bit for bit).
+    ``launch_shapes`` (``{(kernel, *shape): n}``), ``data_bits``,
+    ``model_bits``, ``collective_s``, ``wall_s`` and ``same_as_rank0`` (the rank's result equals rank 0's bit for bit).
     ``started`` is each rank's clock when the cases began.
     """
     dev = mesh_device(mesh)
@@ -152,7 +153,8 @@ def run_cases(mesh, arrays: dict, cases) -> dict[str, dict[str, Any]]:
         out = _cpu(_face(mesh, arrays, case.face, case.kwargs))
         _sync(dev)
         wall = time.perf_counter() - t0
-        mine = dict(launches=dict(ops.LAUNCHES), data_bits=collectives.TALLY.bits["data"],
+        mine = dict(launches=dict(ops.LAUNCHES), launch_shapes=dict(ops.LAUNCH_SHAPES),
+                    data_bits=collectives.TALLY.bits["data"],
                     model_bits=collectives.TALLY.bits["model"],
                     collective_s=collectives.TALLY.seconds, wall_s=wall, out=out)
         every = [None] * dist.get_world_size()

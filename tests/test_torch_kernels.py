@@ -250,6 +250,24 @@ def test_cpu_wrappers_launch_nothing():
                             "soft_threshold": 0}
 
 
+def test_wrappers_count_each_launch_by_its_operand_shape(monkeypatch):
+    # the count and its split by shape sit where a wrapper launches its
+    # kernel; here the "kernels" are stand-ins on CPU tensors
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    monkeypatch.setattr(ops, "gram_cuda", ref.gram_ref)
+    monkeypatch.setattr(ops, "dantzig_fused_cuda",
+                        lambda a, q, inv, b, lam, rho, **kw: torch.zeros_like(b))
+    ops.reset_launches()
+    x = torch.randn(2, 3, 10, 6)
+    ops.gram(x, x.mean(2))
+    ops.dantzig_fused(torch.eye(6), torch.ones(4, 6, 3), 0.1, iters=3)
+    ops.dantzig_fused(torch.eye(6), torch.ones(4, 6, 3), 0.1, iters=3)
+    assert ops.LAUNCHES["gram"] == 1 and ops.LAUNCHES["dantzig_fused"] == 2
+    assert ops.LAUNCH_SHAPES == {("gram", 6, 10, 6): 1, ("dantzig_fused", 4, 6, 3): 2}
+    ops.reset_launches()
+    assert not ops.LAUNCH_SHAPES and not any(ops.LAUNCHES.values())
+
+
 # --- the Hopper blocking model ------------------------------------------------
 
 

@@ -219,11 +219,17 @@ def test_mesh_reentry_is_warm_and_matches_the_simulation(shape):
     data = (_t(setup.xs), _t(setup.ys))
     kw = dict(lam=setup.lam, lam_prime=setup.lam, cfg=setup.gated, collect_info=True)
     want_cold, ws = rounds.simulate_multi_round(head, data, **kw)
-    want_warm, _ = rounds.simulate_multi_round(
+    want_warm, ws_warm = rounds.simulate_multi_round(
         head, data, rho_beta=ws.rho_beta, rho_theta=ws.rho_theta, state_beta=ws.state_beta,
         state_theta=ws.state_theta, **kw)
     _hold(cold, want_cold)
     _hold(warm, want_warm)
+    if setup.model == 1:
+        # rank r is machine r: the executed column-iterations are the
+        # simulation's, each column's block within one residual check
+        slack = setup.gated.check_every * setup.m * (1 + setup.d)
+        for got, w in ((iters_cold, ws), (iters_warm, ws_warm)):
+            assert abs(got - int(w.iters_beta.sum()) - int(w.iters_theta.sum())) <= slack
 
 
 def test_mesh_stream_resumes_exactly(shape):
