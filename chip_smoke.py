@@ -37,6 +37,13 @@ Phases, each of which exits non-zero on failure:
    template and the card's cudaOccupancyMaxActiveClusters; and at the
    launch shapes the mesh runs (f)-(h) add, one machine a rank (m = 1):
    d = 200 with k in {1, 200, 67} and d = 128 with k in {1, 4, 64};
+   and at run (i)'s: K1 at (1, n, 120) for each batch size n it sees, and
+   on a tick's rows corrupted with NaN, inf and +-1e12 garbage (the
+   non-finite entries where the plain version has them), and K3 at
+   (1, 120, k) for k in {1, 5, 120} at each iteration count the ladder
+   runs (600, 1,200, 3,000), cold and from the state of the same solve
+   on another Sigma_hat, through the same checks; and what cuSOLVER's
+   eigh does with a non-finite Sigma_hat (the port's factor is all NaN);
 3. main path: Algorithm 1 at the paper's §5.1 size (d = 200, AR(0.8),
    10 signal coordinates, N = 10,000 over m = 20 machines, 500 ADMM
    iterations) through the entry points a user calls, twice --
@@ -82,6 +89,23 @@ Phases, each of which exits non-zero on failure:
    (F1 equal, accuracy equal for K classes, l2 within 1e-4, 1e-3 on the
    tol-gated re-entry), with the spawn, the slowest rank's compute and
    collectives, and the bits each rank's collectives carried;
+   (i) serving (``repro_torch/configs/serving.py``, SERVING:
+   ``benchmarks/serving.py --paper``, d = 120, B = 8,192 queries a tick,
+   24 ticks, a refresh every 2) through ``ServingRuntime`` and
+   ``launch/serve.py``'s tick loop: (i-1) the reference's config (scan,
+   adaptive rho, tol 1e-3: K1 on every ingest) and (i-2) ``fused=True``
+   (K1 + K3 refits), each with the seed fit, qps by CUDA events and the
+   host time a call, the op contracts counted (0 eigh and 0 launches a
+   classify, 1 eigh a refit), the staleness curve, warm against cold,
+   and the 24-tick chaos runs (clean, protected, unprotected) under one
+   fault plan; (i-2) also the refit by stage and (i-4) the checkpoints
+   (a snapshot a publish, a torn newer file and a stray .tmp skipped,
+   restored onto the card with the live runtime's predictions); (i-3)
+   the K-class stream (K = 5, fused, 8 ticks, held out on 2,000). Each
+   part is held against the same part on the plain versions of K1 and
+   K3 on the card: versions, statuses, quarantine flags and rungs equal,
+   scores within 1e-3 of the largest and predictions equal but at
+   near-ties, the published direction's F1 equal and l2 within 1e-3;
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function (where there is one), with CUDA events
    over back-to-back calls (``ms``), and the cold and warm sweeps; and
@@ -90,9 +114,9 @@ Phases, each of which exits non-zero on failure:
    host time (``host_us``: the wrapper's wall time over unsynchronised
    calls), K1 also with the L2 cache flushed before each call; and the
    four K2/K3 calls at every cluster size that fits and on the streamed
-   template, in turns; and each launch shape of runs (d), (e) and the
-   mesh runs (time, device and host split, bound, launches), with the
-   runs' stages.
+   template, in turns; and each launch shape of runs (d), (e), the
+   mesh runs and run (i) (time, device and host split, bound, launches),
+   with the runs' stages.
 
 The last lines are the kernels' JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
@@ -111,7 +135,7 @@ from types import SimpleNamespace
 
 import torch
 
-from repro_torch.configs import MULTICLASS, ROUNDS, SYNTHETIC
+from repro_torch.configs import MULTICLASS, ROUNDS, SERVING, SYNTHETIC
 
 # Dense peaks of an H100 SXM from NVIDIA's data sheet: FP32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -150,6 +174,15 @@ INT8_SHARE = 0.25  # top-20% int8 uplinks: at most this share of the dense uplin
 MESH_F, MESH_G, MESH_H = (20, 1), (4, 2), (2, 3)
 MESH_T = 3
 MESH_TIMEOUT = 600  # seconds one mesh run may take, the spawn included
+# Run (i), serving (configuration SERVING: benchmarks/serving.py --paper, d = 120): the
+# batch sizes K1 sees there (a tick's 60 a class, the warm-against-cold batch's 150,
+# the refreshed refit's 400, the seed fit's 480), and the iteration counts K3 runs at
+# on each of its shapes: 600 (warm and cold rungs), 1,200 on the binary refactor rung
+# (refactor_scale 2) and 3,000 on the K-class one (refactor_scale 5, SERVING's note)
+SERVING_K1_ROWS = (SERVING.ingest, SERVING.n_warm, SERVING.n_refreshed, SERVING.n_seed)
+SERVING_K3_ITERS = {"direction k=1": (600, 1200), "CLIME k=120": (600, 1200, 3000),
+                    "K-class k=5": (600, 3000)}
+SERVING_CKPT = ".verify/serving_ckpt"  # run (i)'s snapshots (git-ignored), removed at its end
 
 
 FAILURES: list[str] = []
@@ -416,10 +449,11 @@ def edge_shape_checks(label, d, k, m, iters, split, gen) -> None:
     shape_checks(f"edge {label}", fac, b, lam, rho, iters, split)
 
 
-def shape_checks(label, fac, b, lam, rho, iters, split) -> dict:
+def shape_checks(label, fac, b, lam, rho, iters, split, start=None) -> dict:
     """K2 and K3 at one launch shape against their plain versions, across blockings and
     templates, at tol=None, across a resume, and with a gate that stops some blocks
-    early and not others.  Returns the K3 launch shape."""
+    early and not others; every K3 call resumes from ``start`` (None: the zero state, and
+    K3 at tol=None is then held to K2 bit for bit).  Returns the K3 launch shape."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.dantzig_fused import dantzig_fused_cuda, dantzig_fused_state_cuda
 
@@ -433,11 +467,11 @@ def shape_checks(label, fac, b, lam, rho, iters, split) -> dict:
         return dantzig_fused_cuda(a, q, inv, b[..., cols].contiguous(), lam[:, cols].contiguous(),
                                   rho[:, cols].contiguous(), iters=iters, alpha=1.7, **kw)
 
-    def k3(state=None, n=iters, tol=None):
+    def k3(state=start, n=iters, tol=None, **kw):
         return dantzig_fused_state_cuda(a, q, inv, b, lam, rho, state, iters=n, alpha=1.7,
-                                        tol=tol, check_every=CHECK_EVERY)
+                                        tol=tol, check_every=CHECK_EVERY, **kw)
 
-    def k3_plain(state=None, n=iters, tol=None, trace=None):
+    def k3_plain(state=start, n=iters, tol=None, trace=None):
         return ref.dantzig_fused_state_ref(fac.sigma, fac.q, fac.inv_eig, b, lam, iters=n,
                                            rho=rho, alpha=1.7, block_k=bk, tol=tol,
                                            check_every=CHECK_EVERY, state=state, trace=trace)
@@ -479,7 +513,15 @@ def shape_checks(label, fac, b, lam, rho, iters, split) -> dict:
         same["streamed template"] = torch.equal(k2(cluster=0), got)
     fixed = k3()
     resumed = k3(state=k3(n=split).state, n=iters - split)
-    same["K3 at tol=None"] = torch.equal(fixed.beta, got)
+    if start is None:
+        same["K3 at tol=None"] = torch.equal(fixed.beta, got)
+    else:
+        # from a warm state: K3 against its plain version, and across blockings and templates
+        k3_err = float((fixed.beta - k3_plain()[0]).abs().max())
+        check(k3_err <= pin, f"{label}: K3 from the warm state err {k3_err} > {pin}")
+        same[f"K3 block_k={other}"] = torch.equal(k3(block_k=other).beta, fixed.beta)
+        if shape["cluster"]:
+            same["K3 streamed template"] = torch.equal(k3(cluster=0).beta, fixed.beta)
     same[f"K3 resumed {split} + {iters - split}"] = all(
         torch.equal(u, v) for u, v in zip(resumed.state, fixed.state))
     # a gate at the median of the blocks' least residuals over every check
@@ -490,9 +532,11 @@ def shape_checks(label, fac, b, lam, rho, iters, split) -> dict:
     k3_plain(n=iters - CHECK_EVERY, tol=0.0, trace=trace)
     tol = float(torch.stack(trace).amin(0).flatten().median())
     if m * -(-k // bk) == 1:
-        # one block: a gate at its own least residual is met with no margin,
-        # and the kernel's rounding decides the check it stops at
-        tol *= 1.01
+        # one block: a gate at its own least residual is met with no margin, and
+        # the kernel's rounding decides the check it stops at (from a warm start the
+        # least residual sits at the f32 floor); the geometric mean of its first
+        # and least residuals is crossed mid-run, where the residual still falls
+        tol = math.sqrt(float(trace[0].flatten()[0]) * tol)
     gated = k3(tol=tol)
     want_w, _, want_n = k3_plain(tol=tol)
     diff = gated.iters - want_n
@@ -515,6 +559,35 @@ def shape_checks(label, fac, b, lam, rho, iters, split) -> dict:
     check(gate_err <= pin, f"{label}: gated K3 err {gate_err} > {pin}")
     check(bool(fixed.iters.eq(iters).all()), f"{label}: tol=None counts differ")
     return shape
+
+
+def shape_row(fac, b, lam_cols, info, state_io, iters, counter, tol=PATH_TOL,
+              start=None) -> dict:
+    """K2 (or K3 with ``state_io``, gated at ``tol``, resumed from ``start``) at one
+    launch shape: time (back to back, device, host), its bound for this call's work, and
+    its launches in ``counter``."""
+    from repro_torch.kernels.dantzig_fused import dantzig_fused_cuda, dantzig_fused_state_cuda
+
+    m_, d_, k_ = b.shape
+    a_, q_, inv_ = fac.sigma.contiguous(), fac.q.contiguous(), fac.inv_eig.contiguous()
+    ones = torch.ones_like(lam_cols)
+    if state_io:
+        def fn():
+            return dantzig_fused_state_cuda(a_, q_, inv_, b, lam_cols, ones, start,
+                                            iters=iters, alpha=1.7, tol=tol,
+                                            check_every=CHECK_EVERY)
+        work = state_kernel_work(fn().iters, k_, info["block_k"], iters, d=d_)
+    else:
+        def fn():
+            return dantzig_fused_cuda(a_, q_, inv_, b, lam_cols, ones, iters=iters, alpha=1.7)
+        work = fixed_kernel_work(m_, d_, k_, iters)
+    bound_ms, bound_by = bound(*work)
+    reps = 2 if m_ > M else 3
+    name = "dantzig_fused_state" if state_io else "dantzig_fused"
+    return {"shape": [m_, d_, k_], "iters": iters, "ms": cuda_ms(fn, reps),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "launches": counter[(name, m_, d_, k_)], "launch": info,
+            **time_split(fn, reps, reps)}
 
 
 def multiclass_inputs(dev) -> SimpleNamespace:
@@ -692,6 +765,560 @@ def plain_state_kernel():
         yield
     finally:
         ops._dantzig_fused_state = saved
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block K1's and K3's wrappers run their plain versions on the card,
+    uncounted (only this script does that, to hold run (i) against the same run on the
+    plain versions)."""
+    from repro_torch.kernels import ops, ref
+
+    saved = ops.gram
+    ops.gram = ref.gram_ref
+    try:
+        with plain_state_kernel():
+            yield
+    finally:
+        ops.gram = saved
+
+
+def serving_inputs(dev) -> SimpleNamespace:
+    """Phase 2's operands of run (i)'s K1 and K3 launch shapes, from their own generator.
+
+    K1: a batch of each size run (i) gives it, and a tick's 60 rows corrupted with each
+    code (NaN, inf, +-1e12 garbage).  K3: each shape's right-hand side on the statistics
+    of a seed fit merged with one tick's batch (binary: the direction and the CLIME
+    columns; K-class: the K = 5 directions), and the state of the same solve on the seed
+    fit's own statistics (600 plain iterations from zero): a warm refit's start on
+    another Sigma_hat.
+    """
+    from repro_torch.core import streaming as st
+    from repro_torch.core.pipeline import mc_suff_stats, suff_stats
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dantzig_fused import AdmmState, resolve_block_k
+    from repro_torch.kernels.spectral import spectral_factor
+    from repro_torch.stats import synthetic
+
+    S = SERVING
+    d = S.d
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    problem = synthetic.make_problem(d=d, n_signal=S.n_signal, rho=S.rho, device=dev)
+    x, y = synthetic.sample_two_class(gen, problem, S.n_seed, S.n_seed, device=dev)
+    bx, by = synthetic.sample_two_class(gen, problem, S.ingest, S.ingest, device=dev)
+    seed = suff_stats(x, y, use_kernel=False)
+    merged = st.merge_suff_stats(seed, suff_stats(bx, by, use_kernel=False))
+    mcp = synthetic.make_mc_problem(d=d, num_classes=S.classes, n_signal=S.mc_n_signal,
+                                    rho=S.mc_rho, device=dev)
+    xs, labs = synthetic.sample_mc_machines(gen, mcp, 1, 4 * S.ingest * 2, device=dev)
+    bxs, blabs = synthetic.sample_mc_machines(gen, mcp, 1, S.ingest * 2, device=dev)
+    mseed = mc_suff_stats(xs[0], labs[0], S.classes)
+    mmerged = st.merge_mc_stats(mseed, mc_suff_stats(bxs[0], blabs[0], S.classes))
+    eye = torch.eye(d, device=dev)[None]
+    shapes = {"direction k=1": (seed, merged, lambda s: s.mu_d[None, :, None], S.lam),
+              "CLIME k=120": (seed, merged, lambda s: eye, S.lam_prime),
+              "K-class k=5": (mseed, mmerged, lambda s: st.head_stats_of(s).rhs[None], S.lam)}
+    k3 = {}
+    for label, (before, after, rhs, lam) in shapes.items():
+        b_before, b = rhs(before).contiguous(), rhs(after).contiguous()
+        k = b.shape[-1]
+        lam_cols = torch.full((1, k), lam, device=dev)
+        fac0 = spectral_factor(before.sigma[None])
+        _, start, _ = ref.dantzig_fused_state_ref(
+            fac0.sigma, fac0.q, fac0.inv_eig, b_before, lam_cols, iters=600, rho=1.0,
+            alpha=1.7, block_k=resolve_block_k(d, k, None, state_io=True))
+        k3[label] = SimpleNamespace(fac=spectral_factor(after.sigma[None]), b=b, lam=lam_cols,
+                                    start=AdmmState(*(leaf.contiguous() for leaf in start)),
+                                    iters=SERVING_K3_ITERS[label])
+    clean = synthetic.sample_two_class(gen, problem, S.ingest, S.ingest, device=dev)[0]
+    k1 = {n: torch.randn(1, n, d, generator=gen, device=dev) for n in SERVING_K1_ROWS}
+    poisoned = {code: st.corrupt_batch_arrays(code, (clean,))[0][None]
+                for code, _ in ((1, "NaN"), (2, "inf"), (3, "garbage"))}
+    return SimpleNamespace(k1=k1, poisoned=poisoned, k3=k3)
+
+
+def serving_kernel_checks(sv) -> tuple[set, dict]:
+    """Phase 2 at run (i)'s launch shapes; returns the (kernel, *shape) keys it held and
+    K1's error at each batch shape.
+
+    K1 at each batch size within 1e-5 of the largest entry and exactly symmetric, and
+    on each poisoned batch with its NaN and infinite entries where the plain version has
+    them (the finite ones within 1e-5 of the largest); K3 at each shape and iteration
+    count, cold and from the warm state, through :func:`shape_checks`.
+    """
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gram import gram_cuda
+
+    held, k1_err = set(), {}
+    for n, x in sv.k1.items():
+        mu = x.mean(1)
+        got, want = gram_cuda(x, mu), ref.gram_ref(x, mu)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        k1_err[tuple(x.shape)] = err
+        check(err <= 1e-5 * scale, f"K1 serving {tuple(x.shape)}: err {err} > 1e-5 * {scale}")
+        check(torch.equal(got, got.mT), f"K1 serving {tuple(x.shape)}: not symmetric")
+        held.add(("gram", *x.shape))
+        print(f"[kernels] K1 gram serving {tuple(x.shape)}: max abs err {err:.3e} "
+              f"(max |G| {scale:.3e})")
+    for code, x in sv.poisoned.items():
+        mu = x.mean(1)
+        got, want = gram_cuda(x, mu), ref.gram_ref(x, mu)
+        fin = torch.isfinite(want)
+        same = {"NaN": torch.equal(torch.isnan(got), torch.isnan(want)),
+                "inf": torch.equal(torch.isinf(got), torch.isinf(want))
+                and torch.equal(got[torch.isinf(want)], want[torch.isinf(want)])}
+        err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+        scale = float(want[fin].abs().max()) if bool(fin.any()) else 0.0
+        print(f"[kernels] K1 gram serving {tuple(x.shape)} corrupted with code {code}: "
+              f"positions equal {json.dumps(same)}; {int(fin.sum())} finite entries, max abs "
+              f"err {err:.3e} (max |G| {scale:.3e})")
+        check(all(same.values()), f"K1 poisoned code {code}: non-finite positions differ {same}")
+        check(err <= 1e-5 * scale, f"K1 poisoned code {code}: err {err} > 1e-5 * {scale}")
+    # the unprotected baseline factorizes a non-finite Sigma_hat: what cuSOLVER's eigh does
+    # with one, and the port's factor of it (all NaN, never a raise)
+    from repro_torch.kernels.spectral import spectral_factor
+
+    sigma = sv.k3["CLIME k=120"].fac.sigma[0]
+    eigh_does = {}
+    for name, fill, where in (("all NaN", float("nan"), slice(None)),
+                              ("one NaN", float("nan"), (3, 3)), ("one inf", float("inf"), (3, 3))):
+        bad = sigma.clone()
+        bad[where] = fill
+        try:
+            torch.linalg.eigh(bad)
+            torch.cuda.synchronize()
+            eigh_does[name] = "returns"
+        except torch.linalg.LinAlgError as exc:  # recorded: the factor below must not raise
+            eigh_does[name] = f"raises {type(exc).__name__}"
+        fac = spectral_factor(bad)
+        check(bool(torch.isnan(fac.q).all()) and bool(torch.isnan(fac.evals).all()),
+              f"spectral_factor of a Sigma_hat with {name}: not an all-NaN factor")
+    print(f"[kernels] torch.linalg.eigh on a non-finite 120 x 120 Sigma_hat: "
+          f"{json.dumps(eigh_does)}; spectral_factor gives an all-NaN factor")
+    ones = torch.ones(1, 1, device=sv.k1[SERVING.ingest].device)
+    for label, op in sv.k3.items():
+        for iters in op.iters:
+            for start_name, start in (("cold", None), ("warm from another Sigma", op.start)):
+                shape_checks(f"serving {label}, {start_name}", op.fac, op.b, op.lam,
+                             ones.expand_as(op.lam).contiguous(), iters, 2 * iters // 5,
+                             start=start)
+        held.add(("dantzig_fused_state", *op.b.shape))
+    return held, k1_err
+
+
+def rungs(log: list) -> list:
+    """(rung, verdict) of each attempt of a ladder log."""
+    return [(e["attempt"], e["converged"]) for e in log]
+
+
+def serving_contracts(rt, z, refit_args) -> dict:
+    """The two op contracts counted on one classify and one refit_step: the violations."""
+    from repro_torch.analysis.counts import CLASSIFY_BATCH, REFIT_STEP, count_ops
+    from repro_torch.core import streaming as st
+
+    _, served = count_ops(rt.classify, z)
+    _, refit = count_ops(st.refit_step, *refit_args)
+    return {"classify": {k: getattr(served, k) for k in ("eigh", "matmul", "launches",
+                                                          "collectives", "float64")},
+            "refit_step": {k: getattr(refit, k) for k in ("eigh", "matmul", "launches",
+                                                           "collectives", "float64")},
+            "violations": CLASSIFY_BATCH.violations(served) + REFIT_STEP.violations(refit)}
+
+
+def refit_stages(rt, hs, cfg) -> dict:
+    """One warm refit of ``rt`` on the statistics ``hs``, stage by stage, each run to
+    completion (host clock, ms): eigh, the two solves, debias, the slot build."""
+    from repro_torch.core import streaming as st
+    from repro_torch.core.clime import solve_clime_columns_full
+    from repro_torch.core.pipeline import debias
+    from repro_torch.core.solver_dispatch import solve_dantzig_full
+    from repro_torch.kernels.spectral import spectral_factor
+
+    S, carry, ms = SERVING, rt.carry, {}
+    path = "K3" if cfg.fused else "scan"
+    fac, ms["eigh"] = sync_time(lambda: spectral_factor(hs.sigma))
+    dres, ms[f"direction {path}"] = sync_time(lambda: solve_dantzig_full(
+        fac, hs.rhs, S.lam, cfg, rho=carry.rho_beta, state=carry.state_beta))
+    tres, ms[f"CLIME {path}"] = sync_time(lambda: solve_clime_columns_full(
+        fac, torch.arange(S.d, device=hs.sigma.device), S.lam_prime, cfg, rho=carry.rho_theta,
+        state=carry.state_theta))
+    beta, ms["debias"] = sync_time(lambda: debias(hs.sigma, hs.rhs, dres.beta, tres.beta))
+    _, ms["slot build"] = sync_time(lambda: st.slot_from_stats(hs.aux, beta, S.threshold, 2))
+    return {k: 1e3 * v for k, v in ms.items()}
+
+
+def serving_binary(dev, fused: bool, ckpt_dir: str | None = None) -> dict:
+    """Run (i-1) (the reference's config: scan, adaptive rho, tol 1e-3) or (i-2)
+    (``fused=True``: K3 refits) on the binary stream, as ``benchmarks/serving.py
+    --paper`` prices it: the seed fit, qps at B = 8192, the two op contracts, the
+    staleness curve, warm against cold, the 24-tick chaos runs (clean, protected,
+    unprotected) and, with ``ckpt_dir``, the clean run's snapshots (i-4)."""
+    import os
+
+    from repro_torch.checkpoint import latest_step, save_checkpoint
+    from repro_torch.core import streaming as st
+    from repro_torch.core.dantzig import DantzigConfig
+    from repro_torch.core.pipeline import suff_stats
+    from repro_torch.launch import serve
+    from repro_torch.stats import synthetic
+
+    S = SERVING
+    cfg = DantzigConfig(tol=S.tol, fused=fused)
+    kw = dict(cfg=cfg, staleness_bound=S.staleness_bound, device=dev)
+    problem = synthetic.make_problem(d=S.d, n_signal=S.n_signal, rho=S.rho, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    x, y = synthetic.sample_two_class(gen, problem, S.n_seed, S.n_seed, device=dev)
+    aux0 = suff_stats(x, y)
+    out = {"problem": problem}
+    rt, out["seed_fit_s"] = sync_time(lambda: st.ServingRuntime(aux0, S.lam, S.lam_prime,
+                                                                S.threshold, **kw))
+    out["seed_ladder"] = rungs(rt.ladder_log)
+    z, lab = synthetic.sample_labeled(gen, problem, S.batch, device=dev)
+    out["classify_ms"] = cuda_ms(lambda: rt.classify(z), S.qps_reps)
+    out["classify_host_us"] = host_us(lambda: rt.classify(z), S.qps_reps)
+    out["qps"] = S.batch / (out["classify_ms"] / 1e3)
+    out["contracts"] = serving_contracts(rt, z, (st.head_stats_of(rt.aux), S.lam, S.lam_prime,
+                                                 cfg, rt.carry))
+    # the staleness curve: the seed slot against a population moved s refresh steps
+    # along the discriminant direction, then one refit on the moved data
+    mu_d = aux0.mu1 - aux0.mu2
+    norm = float(mu_d.norm())
+    direction, step = mu_d / max(norm, 1e-9), 0.35 * norm
+
+    def accuracy(pred):
+        return float((pred == lab).float().mean())
+
+    stale = [rt.classify(z + s * step * direction) for s in range(S.max_stale + 1)]
+    out["staleness"] = [accuracy(pred) for pred, _ in stale]
+    shift = S.max_stale * step * direction
+    xs_, ys_ = synthetic.sample_two_class(gen, problem, S.n_refreshed, S.n_refreshed,
+                                          device=dev)
+    aux_s = suff_stats(xs_ + shift, ys_ + shift)
+    res_s, log_s = st.refit_with_escalation(st.head_stats_of(aux_s), S.lam, S.lam_prime, cfg,
+                                            None)
+    out["refreshed_ladder"] = rungs(log_s)
+    out["served"] = {f"staleness s={s}": served for s, served in enumerate(stale)}
+    out["refreshed"] = None  # the ladder ran out: the server keeps its stale slot
+    if res_s is not None:
+        slot = st.slot_from_stats(aux_s, res_s.beta_tilde, S.threshold, version=99)
+        refreshed = st.classify_batch(z + shift, slot.beta, slot.means, slot.priors)
+        out["refreshed"] = accuracy(refreshed[0])
+        out["served"]["refreshed"] = refreshed
+    # warm against cold on the seed statistics merged with a 150 + 150 batch
+    bx, by = synthetic.sample_two_class(gen, problem, S.n_warm, S.n_warm, device=dev)
+    hs = st.head_stats_of(st.merge_suff_stats(rt.aux, suff_stats(bx, by)))
+    warm = st.refit_step(hs, S.lam, S.lam_prime, cfg, carry=rt.carry)
+    cold = st.refit_step(hs, S.lam, S.lam_prime, cfg)
+    out["warm_iters"], out["cold_iters"] = (
+        int(r.iters_beta.max()) + int(r.iters_theta.max()) for r in (warm, cold))
+    out["warm_drift"] = float((warm.beta_tilde - cold.beta_tilde).abs().max())
+    out["stages_ms"] = [refit_stages(rt, hs, cfg) for _ in range(3)]
+    # the chaos runs: one plan, one stream (a generator of its own, reseeded a run)
+    plan = st.ServeFaultSchedule(S.corrupt, S.diverge, S.drop, seed=S.fault_seed).plan(S.ticks)
+    out["plan"] = {k: v.tolist() for k, v in plan._asdict().items()}
+    out["runs"] = {}
+    def chaos_run(protect, faulted, ckpt=None):
+        tgen = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+        def tick():
+            batch = synthetic.sample_two_class(tgen, problem, S.ingest, S.ingest, device=dev)
+            return (batch, *synthetic.sample_labeled(tgen, problem, S.batch, device=dev))
+
+        rtc = st.ServingRuntime(aux0, S.lam, S.lam_prime, S.threshold, protect=protect,
+                                ckpt_dir=ckpt, **kw)
+        return rtc, list(serve.serve_ticks(rtc, tick, lambda arrs: suff_stats(*arrs), S.ticks,
+                                           S.refit_every, plan if faulted else None))
+
+    for name, protect, faulted in (("clean", True, False), ("protected", True, True),
+                                   ("unprotected", False, True)):
+        (rtc, recs), wall = sync_time(lambda: chaos_run(
+            protect, faulted, ckpt_dir if name == "clean" else None))
+        out["runs"][name] = {
+            "accuracy": sum(r["accuracy"] for r in recs) / len(recs),
+            "finite": all(r["finite"] for r in recs), "wall_s": wall,
+            **{key: [r[key] for r in recs] for key in ("status", "version", "accepted",
+                                                       "refreshed")},
+            "ladder": rungs(rtc.ladder_log), "beta": 2 * rtc.slot.beta[:, 0], "rt": rtc}
+        out["served"].update({f"{name} tick {r['t']}": (r["pred"], r["scores"]) for r in recs})
+    out["rerun_clean"] = lambda: chaos_run(True, False)
+    if ckpt_dir is not None:
+        # (i-4): the clean run saved a snapshot at every publish; a torn newer file and a
+        # stray .tmp are skipped, and the newest restores onto the card with the live
+        # runtime's predictions
+        live = out["runs"]["clean"]["rt"]
+        newest = latest_step(ckpt_dir)
+        good = open(os.path.join(ckpt_dir, f"step_{newest:09d}.npz"), "rb").read()
+        with open(os.path.join(ckpt_dir, f"step_{newest + 1:09d}.npz"), "wb") as f:
+            f.write(good[: len(good) // 2])
+        with open(os.path.join(ckpt_dir, "stray.tmp"), "wb") as f:
+            f.write(good)
+        skipped = latest_step(ckpt_dir) == newest == int(live.slot.version)
+        restored, restore_s = sync_time(lambda: st.ServingRuntime.restore(
+            ckpt_dir, aux0, S.lam, S.lam_prime, S.threshold, **kw))
+        save_ms = [1e3 * sync_time(lambda: save_checkpoint(ckpt_dir, 10**6, live.snapshot()))[1]
+                   for _ in range(3)]
+        out["checkpoint"] = {
+            "files": len([f for f in os.listdir(ckpt_dir) if f.endswith(".npz")]),
+            "newest": newest, "live_version": int(live.slot.version),
+            "skipped_torn": skipped,
+            "restored_version": int(restored.slot.version), "restore_ms": 1e3 * restore_s,
+            "save_ms": save_ms, "bytes": len(good),
+            "same_predictions": torch.equal(live.classify(z)[0], restored.classify(z)[0])}
+    return out
+
+
+def serving_multiclass(dev) -> dict:
+    """Run (i-3): the K-class stream (K = 5, fused), a seed fit, 8 ticks with a refresh
+    every 4, accuracy on 2,000 held-out draws, and the two op contracts."""
+    from repro_torch.core import streaming as st
+    from repro_torch.core.dantzig import DantzigConfig
+    from repro_torch.launch import serve
+    from repro_torch.stats import synthetic
+
+    S = SERVING
+    cfg = DantzigConfig(tol=S.tol, fused=True)
+    mcp = synthetic.make_mc_problem(d=S.d, num_classes=S.classes, n_signal=S.mc_n_signal,
+                                    rho=S.mc_rho, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    aux0, tick, stats_of = serve.mc_stream(gen, mcp, S.classes, 4 * S.ingest, S.ingest,
+                                           S.batch, device=dev)
+    rt, seed_s = sync_time(lambda: st.ServingRuntime(
+        aux0, S.lam, S.lam_prime, S.threshold, cfg=cfg, staleness_bound=S.staleness_bound,
+        escalation=st.EscalationPolicy(refactor_scale=S.mc_refactor_scale), device=dev))
+    recs, wall = sync_time(lambda: list(serve.serve_ticks(rt, tick, stats_of, S.mc_ticks,
+                                                          S.mc_refit_every)))
+    z, lab = synthetic.sample_mc_machines(gen, mcp, 1, S.n_test, device=dev)
+    held_out = rt.classify(z[0])
+    served = {f"tick {r['t']}": (r["pred"], r["scores"]) for r in recs}
+    served["held out"] = held_out
+    return {"problem": mcp, "seed_fit_s": seed_s, "wall_s": wall, "served": served,
+            "accuracy": [r["accuracy"] for r in recs],
+            "held_out": float((held_out[0] == lab[0]).float().mean()),
+            **{key: [r[key] for r in recs] for key in ("status", "version", "refreshed")},
+            "finite": all(r["finite"] for r in recs), "ladder": rungs(rt.ladder_log),
+            "beta": rt.slot.beta,
+            "contracts": serving_contracts(rt, z[0], (st.head_stats_of(rt.aux), S.lam,
+                                                      S.lam_prime, cfg, rt.carry))}
+
+
+def served_gaps(got: dict, want: dict) -> dict:
+    """Each served batch against the plain run's: the largest score gap over the
+    largest score (finite batches), and the predictions that differ, split into those at
+    a near-tie (the plain run's margin between its two best classes at most twice the
+    batch's largest score gap) and the rest."""
+    out = {"worst_gap": 0.0, "flips": 0, "unexplained": 0, "queries": 0}
+    for key, (pred, scores) in got.items():
+        p_pred, p_scores = want[key]
+        if not bool(torch.isfinite(p_scores).all()):
+            continue
+        gap = float((scores - p_scores).abs().max())
+        out["worst_gap"] = max(out["worst_gap"], gap / max(float(p_scores.abs().max()), 1e-30))
+        top2 = p_scores.topk(2, dim=-1).values
+        differ = pred != p_pred
+        out["flips"] += int(differ.sum())
+        out["unexplained"] += int((differ & (top2[:, 0] - top2[:, 1] > 2 * gap)).sum())
+        out["queries"] += pred.numel()
+    return out
+
+
+def serving_holds(tag: str, got: dict, want: dict, l2_pin: float) -> None:
+    """Run (i)'s holds of one part against the same part on the plain versions: the
+    slots' versions, statuses, quarantine flags and ladder rungs equal; every served
+    score within ``l2_pin`` of the plain run's (relative to the largest) and every
+    prediction equal but at a near-tie, where the two runs' rounding may part them (so
+    accuracy equal up to those); the published direction's F1 equal and its l2 error
+    within ``l2_pin``; warm and cold refit iterations within a residual check a solve of
+    the plain run's.  Within the part: the op contracts, protected within the slack of
+    clean and finite, the unprotected run degraded, the warm refit within the drift
+    budget of the cold one, the fault plan firing, and the checkpoints (i-4)."""
+    from repro_torch.core.classifier import estimation_errors, f1_score
+
+    S = SERVING
+    truth = getattr(got["problem"], "beta_star", None)
+    if truth is None:
+        truth = got["problem"].betas
+    check(got["contracts"]["violations"] == [],
+          f"{tag}: op contracts violated: {got['contracts']['violations']}")
+    # the plain versions' own products and launches aside (K3's plain version is eager
+    # PyTorch), both runs reach the same eigh, collectives and f64
+    for call in ("classify", "refit_step"):
+        mine, plain = ({k: c[call][k] for k in ("eigh", "collectives", "float64")}
+                       for c in (got["contracts"], want["contracts"]))
+        check(mine == plain, f"{tag}: {call} op counts {mine} differ from the plain run's {plain}")
+    gaps = served_gaps(got["served"], want["served"])
+    print(f"  {tag}: served scores against the plain run's: largest gap {gaps['worst_gap']:.3e} "
+          f"of the largest score; {gaps['flips']} of {gaps['queries']} predictions differ, "
+          f"{gaps['unexplained']} of them not at a near-tie")
+    check(gaps["worst_gap"] <= l2_pin, f"{tag}: served scores {gaps['worst_gap']} > {l2_pin} "
+                                       f"from the plain run's")
+    check(gaps["unexplained"] == 0, f"{tag}: {gaps['unexplained']} predictions differ from the "
+                                    f"plain run's away from a near-tie")
+    runs = got.get("runs", {"stream": got})
+    plain_runs = want.get("runs", {"stream": want})
+    for name, run in runs.items():
+        p = plain_runs[name]
+        for key in ("status", "version", "refreshed", "ladder", "accepted"):
+            if key in run:
+                check(run[key] == p[key], f"{tag} {name}: {key} differs from the plain run: "
+                                          f"{run[key]} vs {p[key]}")
+        if name == "unprotected":
+            continue
+        check(run["finite"], f"{tag} {name}: non-finite served scores")
+        f1, f1p = float(f1_score(run["beta"], truth)), float(f1_score(p["beta"], truth))
+        l2 = float(estimation_errors(run["beta"], truth)["l2"])
+        l2p = float(estimation_errors(p["beta"], truth)["l2"])
+        print(f"  {tag} {name}: published direction F1 {f1:.4f} vs {f1p:.4f}, l2 {l2:.5f} vs "
+              f"{l2p:.5f} (gap {abs(l2 - l2p):.3e}), max |beta - plain| "
+              f"{float((run['beta'] - p['beta']).abs().max()):.3e}")
+        check(f1 == f1p, f"{tag} {name}: F1 differs from the plain run")
+        check(abs(l2 - l2p) <= l2_pin, f"{tag} {name}: l2 gap {abs(l2 - l2p)} > {l2_pin}")
+    if "runs" not in got:
+        return
+    check(got["seed_ladder"] == want["seed_ladder"], f"{tag}: seed-fit rungs differ")
+    check(got["refreshed_ladder"] == want["refreshed_ladder"],
+          f"{tag}: the refreshed refit's rungs {got['refreshed_ladder']} differ from the plain "
+          f"run's {want['refreshed_ladder']}")
+    r = runs
+    check(r["protected"]["accuracy"] >= r["clean"]["accuracy"] - S.acc_slack,
+          f"{tag}: protected accuracy {r['protected']['accuracy']} more than {S.acc_slack} "
+          f"under clean {r['clean']['accuracy']}")
+    check(not r["unprotected"]["finite"]
+          or r["unprotected"]["accuracy"] < r["clean"]["accuracy"] - S.acc_slack,
+          f"{tag}: the unprotected run did not degrade")
+    # warm against cold: the counts the plain versions executed (within a residual check
+    # a solve), and the warm solution within the benchmark's drift budget of the cold one;
+    # whether warm runs fewer is reported, not held (the reference's own benchmark at
+    # d = 120 runs warm 400 against cold 390 iterations)
+    for key in ("warm_iters", "cold_iters"):
+        check(abs(got[key] - want[key]) <= 2 * CHECK_EVERY,
+              f"{tag}: {key} {got[key]} against the plain run's {want[key]}")
+    check(got["warm_drift"] <= S.warm_drift,
+          f"{tag}: warm against cold drift {got['warm_drift']} > {S.warm_drift}")
+    plan = got["plan"]
+    check(any(plan["corrupt"]) and any(plan["diverge"]) and any(plan["drop"]),
+          f"{tag}: the fault plan fired no corruption, divergence or drop: {plan}")
+    ck = got.get("checkpoint")
+    if ck is not None:
+        check(ck["skipped_torn"], f"{tag}: latest_step did not skip the torn file: {ck}")
+        check(ck["same_predictions"] and ck["restored_version"] == ck["live_version"],
+              f"{tag}: the restored runtime differs from the live one: {ck}")
+
+
+def serving_summary(tag: str, got: dict, card: str) -> None:
+    """Print one part of run (i)."""
+    if "runs" not in got:
+        print(f"[serving {tag}] ({card}) seed fit {got['seed_fit_s']:.3f} s, {SERVING.mc_ticks} "
+              f"ticks {got['wall_s']:.3f} s; versions {got['version']}, statuses "
+              f"{got['status']}; ladder {got['ladder']}; accuracy by tick {got['accuracy']}, "
+              f"held out {got['held_out']:.4f}; op counts {json.dumps(got['contracts'])}")
+        return
+    runs = {name: {k: v for k, v in run.items() if k not in ("beta", "rt")}
+            for name, run in got["runs"].items()}
+    print(f"[serving {tag}] ({card}) seed fit {got['seed_fit_s']:.3f} s, rungs "
+          f"{got['seed_ladder']}\n  classify at B = {SERVING.batch}: {got['classify_ms']:.4f} ms "
+          f"(CUDA events, {SERVING.qps_reps} back to back), {got['qps']:,.0f} qps; host "
+          f"{got['classify_host_us']:.1f} us a call\n  op counts {json.dumps(got['contracts'])}"
+          f"\n  staleness accuracy s = 0..{SERVING.max_stale}: {got['staleness']}, refreshed "
+          f"{got['refreshed']} (rungs {got['refreshed_ladder']})\n  warm {got['warm_iters']} "
+          f"vs cold {got['cold_iters']} iterations, drift {got['warm_drift']:.3e}\n  refit "
+          f"stages, ms: "
+          f"{json.dumps(got['stages_ms'])}\n  fault plan {json.dumps(got['plan'])}")
+    if "busy_share" in got:
+        print(f"  the device's busy share of the clean run, run again under the profiler: "
+              f"{got['busy_share']:.4f}")
+    for name, run in runs.items():
+        print(f"  {name}: accuracy {run['accuracy']:.6f}, finite {run['finite']}, wall "
+              f"{run['wall_s']:.3f} s; versions {run['version']}; statuses {run['status']}; "
+              f"accepted {run['accepted']}; ladder {run['ladder']}")
+    if "checkpoint" in got:
+        print(f"  checkpoints: {json.dumps(got['checkpoint'])}")
+
+
+def run_serving(dev, card_line: str, held: set) -> tuple[dict, dict, collections.Counter]:
+    """Run (i): each part with its launches reset before and read after, then again with
+    the plain versions of K1 and K3 on the card and held against that; (i-4), the
+    checkpoints, rides on (i-2)'s clean chaos run, its snapshots removed after.  Returns
+    each part's results, its launches, and run (i)'s launches by (kernel, *shape)."""
+    import os
+    import shutil
+
+    from repro_torch.kernels import ops
+
+    ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), SERVING_CKPT)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    parts = {"(i-1) scan, adaptive rho": lambda ck: serving_binary(dev, False),
+             "(i-2) fused (K3)": lambda ck: serving_binary(dev, True, ck),
+             "(i-3) K-class, fused": lambda ck: serving_multiclass(dev)}
+    serving, serving_launch, serving_tally = {}, {}, collections.Counter()
+    tags = list(parts)
+    for tag, fn in parts.items():
+        ops.reset_launches()
+        got = fn(os.path.join(ckpt_root, "kernels"))
+        serving_launch[tag] = dict(ops.LAUNCHES)
+        shapes = collections.Counter(ops.LAUNCH_SHAPES)
+        serving_tally.update(shapes)
+        rerun = got.pop("rerun_clean", None)
+        if tag == tags[1]:
+            # the fused clean run once more, under the profiler and outside the counts (a
+            # profiled scan run takes minutes: thousands of small launches a refit)
+            got["busy_share"] = busy_share(rerun)
+        ops.reset_launches()
+        with plain_versions():
+            want = fn(os.path.join(ckpt_root, "plain"))
+        want.pop("rerun_clean", None)
+        check(not any(ops.LAUNCHES.values()), f"run {tag}: the plain run launched {ops.LAUNCHES}")
+        serving_summary(tag, got, card_line)
+        print(f"  launches {json.dumps(serving_launch[tag])}; by (kernel, *shape) "
+              f"{json.dumps({str(k): v for k, v in sorted(shapes.items())})}; against the "
+              f"plain versions on the card:")
+        serving_holds(tag, got, want, 1e-3)
+        serving[tag] = got
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    tag1, tag2, tag3 = parts
+    check(serving_launch[tag1]["gram"] > 0 and serving_launch[tag1]["dantzig_fused_state"] == 0,
+          f"run {tag1}: launched {serving_launch[tag1]}, not K1 alone")
+    check(serving_launch[tag2]["gram"] > 0 and serving_launch[tag2]["dantzig_fused_state"] > 0,
+          f"run {tag2}: launched {serving_launch[tag2]}, not K1 and K3")
+    check(serving_launch[tag3]["dantzig_fused_state"] > 0 and serving_launch[tag3]["gram"] == 0,
+          f"run {tag3}: launched {serving_launch[tag3]}, not K3 alone")
+    for tag in parts:
+        check(serving_launch[tag]["dantzig_fused"] == 0
+              and serving_launch[tag]["soft_threshold"] == 0,
+              f"run {tag}: launched K2 or K4: {serving_launch[tag]}")
+    unheld = sorted(key for key in serving_tally if key not in held)
+    check(not unheld, f"run (i): launch shapes held against no plain version: {unheld}")
+    print(f"[serving] run (i) launches by (kernel, *shape): "
+          f"{json.dumps({str(k): v for k, v in sorted(serving_tally.items())})} ({card_line})")
+    return serving, serving_launch, serving_tally
+
+
+def serving_rows(sv, tally, k1_err: dict, card_line: str) -> tuple[list, dict]:
+    """Phase 4 at run (i)'s launch shapes: K1 at each batch size and K3 at each shape and
+    iteration count at run (i)'s gate, cold and warm (launches there, time, bound)."""
+    from repro_torch.kernels.gram import gram_cuda
+
+    gram_serving = []
+    for x in sv.k1.values():
+        mu_x = x.mean(1)
+        _, n_, d_ = x.shape
+        gram_serving.append({
+            "shape": list(x.shape), "launches": tally[("gram", *x.shape)],
+            "max_abs_err": k1_err[tuple(x.shape)],
+            "ms": cuda_ms(lambda: gram_cuda(x, mu_x), 50),
+            "bound_ms": bound(n_ * d_ * (d_ + 1) + n_ * d_, 4 * (n_ * d_ + d_ + d_ * d_))[0],
+            **time_split(lambda: gram_cuda(x, mu_x), 100, 1000)})
+        gram_serving[-1]["x_bound"] = gram_serving[-1]["device_ms"] / gram_serving[-1]["bound_ms"]
+    k3_serving = {}
+    for label, op in sv.k3.items():
+        info = launch_shape(*op.b.shape, True)
+        for iters in op.iters:
+            for start_name, start in (("cold", None), ("warm", op.start)):
+                r = shape_row(op.fac, op.b, op.lam, info, True, iters, tally,
+                              tol=SERVING.tol, start=start)
+                r["x_bound"] = r["device_ms"] / r["bound_ms"]
+                k3_serving[f"{label} {iters} it. {start_name}"] = r
+    print(f"[times] run (i) launch shapes ({card_line}), K1: {json.dumps(gram_serving)}\n  K3: "
+          f"{json.dumps(k3_serving)}")
+    return gram_serving, k3_serving
 
 
 def main() -> None:
@@ -1131,6 +1758,13 @@ def main() -> None:
               f"{m_ * -(-k_ // k3_info['block_k'])} clusters")
         check(k2_info["cluster"] > 0 and k3_info["cluster"] > 0,
               f"{label}: the model sends the shape to the streamed template")
+
+    # run (i)'s launch shapes (configuration SERVING, d = 120): K1 at each batch size
+    # and on a tick's rows corrupted with each code, K3 at each shape and iteration
+    # count, cold and from the state of the same solve on another Sigma_hat
+    sv, inputs_s = sync_time(lambda: serving_inputs(dev))
+    (serving_held, serving_k1_err), held_s = sync_time(lambda: serving_kernel_checks(sv))
+    print(f"[kernels] run (i)'s shapes: inputs {inputs_s:.2f} s, checks {held_s:.2f} s")
 
     # ---- 3. the main path ---------------------------------------------------
     def estimators(cfg, use_kernel, times):
@@ -1617,6 +2251,14 @@ def main() -> None:
     print(f"[mesh] rank launches of runs (f)-(h), all ranks: {json.dumps(mesh_launches)}; by "
           f"shape: {json.dumps({str(k): v for k, v in sorted(mesh_tally.items())})}")
 
+    # ---- 3 (i). serving (configuration SERVING) ----------------------------------
+    (serving, serving_launch, serving_tally), run_i_s = sync_time(
+        lambda: run_serving(dev, card_line, serving_held))
+    print(f"[serving] run (i), kernels and plain versions: {run_i_s:.2f} s")
+    for counts in serving_launch.values():
+        for kernel, n in counts.items():
+            launches[kernel] += n
+
     # ---- 4. times -------------------------------------------------------------
     name_card = torch.cuda.get_device_name(0)
     xc = xs - mu1.unsqueeze(1)  # bmm's input: the centering is not in the library call
@@ -1680,12 +2322,15 @@ def main() -> None:
                           "max_abs_err": held_k1["max_abs_err"],
                           "ms": cuda_ms(lambda: gram_cuda(held_k1["x"], held_k1["mu"]), 50),
                           "bound_ms": bound(n_ * d_ * (d_ + 1) + n_ * d_,
-                                            4 * (n_ * d_ + d_ + d_ * d_))[0]})
+                                            4 * (n_ * d_ + d_ + d_ * d_))[0],
+                          **time_split(lambda: gram_cuda(held_k1["x"], held_k1["mu"]), 100,
+                                       1000)})
+    gram_serving, k3_serving = serving_rows(sv, serving_tally, serving_k1_err, card_line)
     row("gram", "cuda", "repro_torch/kernels/csrc/gram.cu", "src/repro/kernels/gram.py:28",
         cuda_ms(lambda: gram_cuda(xs, mu1), 50), cuda_ms(lambda: ref.gram_ref(xs, mu1), 50),
         M * (n * D * (D + 1) + n * D), 4 * (M * n * D + M * D + M * D * D), "gram library bmm",
         library_ms=cuda_ms(lambda: torch.bmm(xc.mT, xc), 50),  # library: centering excluded
-        mesh=gram_mesh)
+        mesh=gram_mesh, serving=gram_serving)
 
     # each launch shape runs (d) and (e) add: time (back to back, device,
     # host), its bound for this run's work, and its launches in those runs
@@ -1693,29 +2338,6 @@ def main() -> None:
         iters = MULTICLASS.max_iters if label.startswith("multiclass") else ROUNDS.max_iters
         info = new_info[label]["K3" if state_io else "K2"]
         return shape_row(*new_ops[label], info, state_io, iters, tally)
-
-    def shape_row(fac, b, lam_cols, info, state_io, iters, counter):
-        m_, d_, k_ = b.shape
-        a_, q_, inv_ = fac.sigma.contiguous(), fac.q.contiguous(), fac.inv_eig.contiguous()
-        ones = torch.ones_like(lam_cols)
-        if state_io:
-            def fn():
-                return dantzig_fused_state_cuda(a_, q_, inv_, b, lam_cols, ones, None,
-                                                iters=iters, alpha=1.7, tol=PATH_TOL,
-                                                check_every=CHECK_EVERY)
-            work = state_kernel_work(fn().iters, k_, info["block_k"], iters, d=d_)
-        else:
-            def fn():
-                return dantzig_fused_cuda(a_, q_, inv_, b, lam_cols, ones, iters=iters,
-                                          alpha=1.7)
-            work = fixed_kernel_work(m_, d_, k_, iters)
-        bound_ms, bound_by = bound(*work)
-        reps = 2 if m_ > M else 3
-        name = "dantzig_fused_state" if state_io else "dantzig_fused"
-        return {"shape": [m_, d_, k_], "iters": iters, "ms": cuda_ms(fn, reps),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "launches": counter[(name, m_, d_, k_)], "launch": info,
-                **time_split(fn, reps, reps)}
 
     # each launch shape of the mesh runs (f)-(h), m = 1: its launches there
     # (rank launches, summed over the ranks), time and bound
@@ -1782,7 +2404,7 @@ def main() -> None:
         launch=launches_info["K3 CLIME"], mesh=k3_mesh,
         direction_fold={"ms": fold_ms, "bound_ms": fold_bound, "launch": launches_info["K3 fold"],
                         **splits["dantzig_fused_state fold"]},
-        runs_d_e=k3_new)
+        runs_d_e=k3_new, serving=k3_serving)
     sweep_ms = {name: cuda_ms(lambda: sweep(**warm_kw), 3) for name, warm_kw in (
         ("cold", {}), ("warm", dict(rho_beta=cold.rho_beta, state_beta=cold.state_beta)))}
     print(f"[times] K3 CLIME (m={M}, d={D}, k={D}, tol={PATH_TOL}, max {ITERS} iters): "

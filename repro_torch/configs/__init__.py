@@ -1,5 +1,5 @@
 """Experiment configs for the paper's own studies (twin of ``repro.configs``) and the
-multiclass and refinement-round designs of the reference's benchmarks."""
+multiclass, refinement-round and serving designs of the reference's benchmarks."""
 
 from repro_torch.configs.multiclass_rounds import (  # noqa: F401
     MULTICLASS,
@@ -16,3 +16,4 @@ from repro_torch.configs.paper_synthetic import (  # noqa: F401
     RealDataConfig,
     SyntheticConfig,
 )
+from repro_torch.configs.serving import SERVING, ServingConfig  # noqa: F401

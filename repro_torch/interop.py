@@ -10,7 +10,11 @@ states on a leading L axis (:func:`path_result_from_numpy`).  The
 comms configs come across as ``_asdict()`` mappings (nested configs as
 mappings or as the reference's own NamedTuples) and a materialized
 fault plan as its three arrays, so a rounds test feeds both packages
-the same plan.
+the same plan.  The serving state comes across whole: sufficient
+statistics, a model slot, a refit's warm carry, a serving fault plan
+and a snapshot (``{"slot", "aux", "factor", "carry"}``), each from the
+reference's NamedTuples or mappings of their fields, so a reference
+runtime's state can be served by the port's.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from repro_torch.core.compression import Compression
 from repro_torch.core.dantzig import DantzigConfig
 from repro_torch.core.faults import Aggregation, FaultPlan, FaultSchedule
 from repro_torch.core.path import PathResult
+from repro_torch.core.pipeline import MCStats, SuffStats
+from repro_torch.core.streaming import ModelSlot, RefitCarry, ServeFaultPlan
 from repro_torch.core.transport import BitBudget, CommPlan
 from repro_torch.device import require_device
 from repro_torch.kernels.dantzig_fused import AdmmState
@@ -115,3 +121,68 @@ def comm_plan_from_dict(fields: Mapping) -> CommPlan:
         schedule=None if plan.schedule is None else bit_budget_from_dict(plan.schedule),
         faults=_config(FaultSchedule, plan.faults),
         aggregation=_config(Aggregation, plan.aggregation))
+
+
+def _fields(obj) -> Mapping:
+    """A NamedTuple's fields (through ``_asdict()``) or a mapping, as a mapping."""
+    return obj if isinstance(obj, Mapping) else obj._asdict()
+
+
+def suff_stats_from_numpy(fields, device: str | torch.device = "cuda") -> SuffStats:
+    """A reference ``SuffStats`` (or its fields) as the port's, the counts 0-d int32."""
+    f = _fields(fields)
+    return SuffStats(tensor(f["sigma"], device), tensor(f["mu1"], device),
+                     tensor(f["mu2"], device), tensor(f["n1"], device, dtype=torch.int32),
+                     tensor(f["n2"], device, dtype=torch.int32))
+
+
+def mc_stats_from_numpy(fields, device: str | torch.device = "cuda") -> MCStats:
+    """A reference ``MCStats`` (or its fields) as the port's."""
+    f = _fields(fields)
+    return MCStats(*(tensor(f[name], device) for name in MCStats._fields))
+
+
+def stats_from_numpy(fields, device: str | torch.device = "cuda"):
+    """Either head's statistics: ``SuffStats`` when the fields hold ``mu1``, else ``MCStats``."""
+    if "mu1" in _fields(fields):
+        return suff_stats_from_numpy(fields, device)
+    return mc_stats_from_numpy(fields, device)
+
+
+def serve_fault_plan_from_numpy(corrupt, diverge, drop) -> ServeFaultPlan:
+    """A materialized reference ``ServeFaultPlan`` as the port's host-side plan."""
+    return ServeFaultPlan(tensor(corrupt, "cpu", dtype=torch.int32),
+                          tensor(diverge, "cpu", dtype=torch.int32),
+                          tensor(drop, "cpu", dtype=torch.bool))
+
+
+def model_slot_from_numpy(fields, device: str | torch.device = "cuda") -> ModelSlot:
+    """A reference ``ModelSlot`` (or its fields) as the port's, the version 0-d int32."""
+    f = _fields(fields)
+    return ModelSlot(tensor(f["beta"], device), tensor(f["means"], device),
+                     tensor(f["priors"], device), tensor(f["version"], device, dtype=torch.int32))
+
+
+def _state(state, device) -> AdmmState:
+    if not isinstance(state, Mapping) and hasattr(state, "_asdict"):
+        state = state._asdict()
+    if isinstance(state, Mapping):
+        state = [state[name] for name in AdmmState._fields]
+    return state_from_numpy(*state, device=device)
+
+
+def refit_carry_from_numpy(fields, device: str | torch.device = "cuda") -> RefitCarry:
+    """A reference ``RefitCarry`` (or its fields; each state a mapping, NamedTuple or
+    (z, w, u1, u2)) as the port's."""
+    f = _fields(fields)
+    return RefitCarry(tensor(f["rho_beta"], device), tensor(f["rho_theta"], device),
+                      _state(f["state_beta"], device), _state(f["state_theta"], device))
+
+
+def serving_snapshot_from_numpy(snapshot: Mapping, device: str | torch.device = "cuda") -> dict:
+    """A reference serving snapshot (``ServingRuntime.snapshot()``) as the port's."""
+    factor = _fields(snapshot["factor"])
+    return {"slot": model_slot_from_numpy(snapshot["slot"], device),
+            "aux": stats_from_numpy(snapshot["aux"], device),
+            "factor": factor_from_numpy(factor["sigma"], factor["q"], factor["evals"], device),
+            "carry": refit_carry_from_numpy(snapshot["carry"], device)}

@@ -39,9 +39,17 @@ class SpectralFactor(NamedTuple):
 
 
 def spectral_factor(sigma: torch.Tensor) -> SpectralFactor:
-    """Factorize ``sigma`` once: the only ``eigh`` call in the system."""
-    evals, q = torch.linalg.eigh(sigma)
-    return SpectralFactor(sigma, q, evals)
+    """Factorize ``sigma`` once: the only ``eigh`` call in the system.
+
+    A machine whose matrix holds a NaN or an infinity gets an all-NaN
+    factor, as the reference's ``eigh`` gives it: LAPACK and cuSOLVER
+    may instead raise on such input, so ``eigh`` sees zeros there and
+    the NaN is selected in after (finite matrices are factorized as given).
+    """
+    finite = torch.isfinite(sigma).all(-1, keepdim=True).all(-2, keepdim=True)
+    evals, q = torch.linalg.eigh(torch.where(finite, sigma, 0.0))
+    return SpectralFactor(sigma, torch.where(finite, q, float("nan")),
+                          torch.where(finite[..., 0], evals, float("nan")))
 
 
 def as_spectral_factor(a) -> SpectralFactor:

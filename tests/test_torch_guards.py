@@ -75,6 +75,10 @@ MESH_MODULES = ["repro_torch.core.collectives", "repro_torch.core.distributed",
                 "repro_torch.mesh_distributed_lda"]
 
 
+SERVING_MODULES = ["repro_torch.core.streaming", "repro_torch.checkpoint.io",
+                   "repro_torch.launch.serve", "repro_torch.analysis.counts"]
+
+
 @pytest.mark.parametrize("name", SLICE_MODULES)
 def test_multiclass_and_rounds_modules_stand_alone_and_default_to_the_card(name):
     _stands_alone_and_defaults_to_the_card(name)
@@ -83,6 +87,32 @@ def test_multiclass_and_rounds_modules_stand_alone_and_default_to_the_card(name)
 @pytest.mark.parametrize("name", MESH_MODULES)
 def test_mesh_modules_stand_alone_and_default_to_the_card(name):
     _stands_alone_and_defaults_to_the_card(name)
+
+
+@pytest.mark.parametrize("name", SERVING_MODULES)
+def test_serving_modules_stand_alone_and_default_to_the_card(name):
+    _stands_alone_and_defaults_to_the_card(name)
+
+
+def test_serving_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core.pipeline import suff_stats
+    from repro_torch.core.streaming import ServingRuntime
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = torch.randn(20, 6, generator=torch.Generator().manual_seed(0))
+    aux = suff_stats(x[:10], x[10:] + 1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingRuntime(aux, 0.1, 0.2, 1e-3)
+    save_checkpoint(str(tmp_path), 1, {"a": torch.zeros(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_checkpoint(str(tmp_path), 1, {"a": torch.zeros(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingRuntime.restore(str(tmp_path), aux, 0.1, 0.2, 1e-3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--smoke"])
+    assert restore_checkpoint(str(tmp_path), 1, {"a": torch.ones(2)}, device="cpu")["a"].eq(0).all()
 
 
 def _stands_alone_and_defaults_to_the_card(name):
