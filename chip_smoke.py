@@ -42,8 +42,12 @@ Phases, each of which exits non-zero on failure:
    non-finite entries where the plain version has them), and K3 at
    (1, 120, k) for k in {1, 5, 120} at each iteration count the ladder
    runs (600, 1,200, 3,000), cold and from the state of the same solve
-   on another Sigma_hat, through the same checks; and what cuSOLVER's
-   eigh does with a non-finite Sigma_hat (the port's factor is all NaN);
+   on another Sigma_hat, through the same checks; and at runs (j) and
+   (k)'s (m = 1): K1 at (n, d) in ``LINT_K1`` and (2,048, 256), K2 and
+   K3 at each (d, k) of ``LINT_ADMM`` at 40 iterations and at (256, 1)
+   and (256, 16) at 500, through the edge shapes' checks; and what
+   cuSOLVER's eigh does with a non-finite Sigma_hat (the port's factor
+   is all NaN);
 3. main path: Algorithm 1 at the paper's §5.1 size (d = 200, AR(0.8),
    10 signal coordinates, N = 10,000 over m = 20 machines, 500 ADMM
    iterations) through the entry points a user calls, twice --
@@ -106,6 +110,16 @@ Phases, each of which exits non-zero on failure:
    K3 on the card: versions, statuses, quarantine flags and rungs equal,
    scores within 1e-3 of the largest and predictions equal but at
    near-ties, the published direction's F1 equal and l2 within 1e-3;
+   (j) the op-contract lint (``python -m repro_torch.analysis.lint``):
+   all 43 cases of ``repro_torch/analysis/cases.py`` on the card, the
+   mesh cases on gloo ranks all on this card (one spawn a mesh shape),
+   every case's contracts reading the kernels' launches, which must
+   equal the wrapper calls; (k) the production-mesh dry run
+   (``python -m repro_torch.launch.dryrun_slda``: d = 256, n = 4,096,
+   500 iterations, rank 0 of 16 x 16 and 2 x 16 x 16, baseline and
+   fused) in a child process that only loads the kernels built here:
+   rank 0's seconds, peak memory, FLOP, bytes, launches by shape and
+   bits a link (the data axis's one d-vector), beside the card line;
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function (where there is one), with CUDA events
    over back-to-back calls (``ms``), and the cold and warm sweeps; and
@@ -183,6 +197,20 @@ SERVING_K1_ROWS = (SERVING.ingest, SERVING.n_warm, SERVING.n_refreshed, SERVING.
 SERVING_K3_ITERS = {"direction k=1": (600, 1200), "CLIME k=120": (600, 1200, 3000),
                     "K-class k=5": (600, 3000)}
 SERVING_CKPT = ".verify/serving_ckpt"  # run (i)'s snapshots (git-ignored), removed at its end
+# Run (j), the op-contract lint on the card (python -m repro_torch.analysis.lint): the
+# (rows a class, d) of each K1 launch and the (d, k) of each K2/K3 launch its 43 cases
+# make, one machine a rank (m = 1) at 40 ADMM iterations (repro_torch/analysis/cases.py):
+# d = 12, 10 and 16 in process and on (1, 1) meshes, d = 70 over (data=2, model=4), 18
+# CLIME columns a rank (two of them pad).  Run (k), the production-mesh dry run at the
+# reference's defaults (python -m repro_torch.launch.dryrun_slda: d = 256, n = 4,096 a
+# machine, 500 iterations; rank 0 of 16 x 16 and 2 x 16 x 16): K1 at (2,048, 256), K2
+# at k = 1 and the 16 CLIME columns of model rank 0.
+LINT_K1 = ((40, 12), (44, 12), (30, 12), (30, 70))
+LINT_ADMM = ((12, 1), (12, 12), (10, 3), (10, 10), (12, 6), (16, 4), (16, 8), (16, 12),
+             (70, 1), (70, 18))
+LINT_ITERS, LINT_CASES = 40, 43
+DRY = SimpleNamespace(d=256, n=4096, iters=500)
+DRY_ADMM = ((DRY.d, 1), (DRY.d, DRY.d // 16))
 
 
 FAILURES: list[str] = []
@@ -911,17 +939,26 @@ def rungs(log: list) -> list:
 
 
 def serving_contracts(rt, z, refit_args) -> dict:
-    """The two op contracts counted on one classify and one refit_step: the violations."""
-    from repro_torch.analysis.counts import CLASSIFY_BATCH, REFIT_STEP, count_ops
+    """The registered op contracts of ``streaming.classify_batch`` and
+    ``streaming.refit_step``, counted on one classify and one refit: the counts and the
+    violations."""
+    from repro_torch.analysis import check_entry, count_ops
     from repro_torch.core import streaming as st
 
     _, served = count_ops(rt.classify, z)
     _, refit = count_ops(st.refit_step, *refit_args)
-    return {"classify": {k: getattr(served, k) for k in ("eigh", "matmul", "launches",
-                                                          "collectives", "float64")},
-            "refit_step": {k: getattr(refit, k) for k in ("eigh", "matmul", "launches",
-                                                           "collectives", "float64")},
-            "violations": CLASSIFY_BATCH.violations(served) + REFIT_STEP.violations(refit)}
+    pallas = 2 if refit_args[3].fused else 0
+
+    def summary(c):
+        return {"eigh": c.eigh, "matmul": c.matmul, "launches": sum(c.launches.values()),
+                "calls": sum(c.calls.values()),
+                "collectives": sum(c.collective_count(op) for op in ("psum", "all_gather")),
+                "float64": c.float_outputs.get("float64", 0)}
+
+    violations = (check_entry("streaming.classify_batch", served, {})
+                  + check_entry("streaming.refit_step", refit, {"pallas_calls": pallas}))
+    return {"classify": summary(served), "refit_step": summary(refit),
+            "violations": [v.render() for v in violations]}
 
 
 def refit_stages(rt, hs, cfg) -> dict:
@@ -1319,6 +1356,115 @@ def serving_rows(sv, tally, k1_err: dict, card_line: str) -> tuple[list, dict]:
     print(f"[times] run (i) launch shapes ({card_line}), K1: {json.dumps(gram_serving)}\n  K3: "
           f"{json.dumps(k3_serving)}")
     return gram_serving, k3_serving
+
+
+def analysis_kernel_checks(dev) -> set:
+    """Phase 2 at runs (j) and (k)'s launch shapes, on random inputs from their own
+    generator: K1 at each (rows, d) within 1e-5 of the largest entry and exactly symmetric,
+    and K2 and K3 at each (d, k) through the edge shapes' checks.  Returns the
+    (kernel, *shape) keys held."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gram import gram_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    held, worst = set(), 0.0
+    for n_, d_ in LINT_K1 + ((DRY.n // 2, DRY.d),):
+        x = torch.randn(1, n_, d_, generator=gen, device=dev)
+        got, want = gram_cuda(x, x.mean(1)), ref.gram_ref(x, x.mean(1))
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        worst = max(worst, err / scale)
+        check(err <= 1e-5 * scale, f"K1 runs (j)-(k) (1, {n_}, {d_}): err {err} > 1e-5 * {scale}")
+        check(torch.equal(got, got.mT), f"K1 runs (j)-(k) (1, {n_}, {d_}): not symmetric")
+        held.add(("gram", 1, n_, d_))
+    print(f"[kernels] K1 at runs (j)-(k)'s shapes: largest err / max |G| {worst:.3e}")
+    for shapes, iters in ((LINT_ADMM, LINT_ITERS), (DRY_ADMM, DRY.iters)):
+        for d_, k_ in shapes:
+            edge_shape_checks(f"runs (j)-(k) d={d_} k={k_}", d_, k_, 1, iters, 2 * iters // 5,
+                              gen)
+            held |= {(kernel, 1, d_, k_) for kernel in ("dantzig_fused", "dantzig_fused_state")}
+    return held
+
+
+def run_lint(card_line: str) -> tuple[collections.Counter, set, float]:
+    """Run (j): every case of the op-contract lint on the card, the mesh cases on gloo
+    ranks all on this card.  Returns its counted kernel launches by (kernel, *shape) -- on
+    the card the contracts hold every counted call to one launch --, the shapes this
+    process launched at (the cases' set-up included) and its seconds."""
+    import io
+
+    from repro_torch.analysis import lint
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    shapes, buf = collections.Counter(), io.StringIO()
+    failures, seconds = sync_time(lambda: lint.run(device="cuda", out=buf, shapes=shapes))
+    report = buf.getvalue()
+    print("[lint] run (j), python -m repro_torch.analysis.lint on the card:")
+    print("\n".join("  " + line for line in report.splitlines()))
+    n_ok = report.count("  [ok] ")
+    check(failures == 0, f"run (j): {failures} lint failure(s)")
+    check(n_ok == LINT_CASES, f"run (j): {n_ok} cases [ok], not {LINT_CASES}")
+    # the cases' own statistics launch K1 in this process outside the counted calls
+    building = collections.Counter(ops.LAUNCH_SHAPES)
+    print(f"[lint] run (j): {seconds:.2f} s, {n_ok} of {LINT_CASES} cases [ok]; counted kernel "
+          f"launches by (kernel, *shape), every rank: "
+          f"{json.dumps({str(k): v for k, v in sorted(shapes.items())})}; this process's "
+          f"launches, the cases' set-up included: "
+          f"{json.dumps({str(k): v for k, v in sorted(building.items())})} ({card_line})")
+    return shapes, set(building), seconds
+
+
+def run_dry(card_line: str) -> tuple[collections.Counter, list, float]:
+    """Run (k): ``python -m repro_torch.launch.dryrun_slda`` at the reference's defaults,
+    both meshes and both variants, in a child process (the fake process group is
+    process-wide) that only loads the kernels built here.  Returns its kernel calls by
+    (kernel, *shape), the four results and its seconds."""
+    import ast
+    import os
+    import tempfile
+
+    from repro_torch.kernels import build
+
+    build.build()
+    code = ("import sys\nfrom repro_torch.kernels import build\nbuild.forbid_builds()\n"
+            "from repro_torch.launch import dryrun_slda\n"
+            "for variant in ('baseline', 'fused'):\n"
+            "    dryrun_slda.main(sys.argv[1:] + ['--variant', variant])\n")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code, "--d", str(DRY.d), "--n", str(DRY.n),
+                               "--iters", str(DRY.iters), "--mesh", "both", "--out", out],
+                              capture_output=True, text=True, timeout=600, cwd=root)
+        seconds = time.perf_counter() - t0
+        print("[dryrun] run (k), python -m repro_torch.launch.dryrun_slda --mesh both, "
+              f"baseline and fused: {seconds:.2f} s")
+        print("\n".join("  " + line for line in proc.stdout.splitlines()))
+        check(proc.returncode == 0, f"run (k) exited {proc.returncode}: {proc.stderr[-3000:]}")
+        results = [json.load(open(os.path.join(out, name))) for name in sorted(os.listdir(out))]
+    check(len(results) == 4, f"run (k): {len(results)} results, not 4")
+    calls = collections.Counter()
+    for r in results:
+        shapes = {ast.literal_eval(k): n for k, n in r["calls"].items()}
+        calls.update(shapes)
+        tag = f"{r['mesh']} {r['variant']}"
+        print(f"  {tag}: rank 0 {r['wall_s']} s (counted call {r['counted_call_s']:.3f} s),"
+              f" peak {r['peak_memory_bytes']} B ({r['peak_above_resident_bytes']} B above "
+              f"what was resident), {r['flops_per_device']:.4e} FLOP "
+              f"({r['kernel_flops']:.4e} in the kernels), {r['bytes_per_device']:.4e} B, "
+              f"launches {json.dumps(r['launches'])} by shape {json.dumps(r['calls'])}, link "
+              f"bits {json.dumps(r['link_bits'])} (paper {8 * r['paper_uplink_bytes']} on the "
+              f"data axis; by hop {json.dumps(r['wire_bits_by_hop'])}), roofline "
+              f"{r['compute_s']:.3e} / {r['memory_s']:.3e} / {r['collective_s']:.3e} s "
+              f"({r['dominant']}) ({card_line})")
+        check(r["device"] == torch.cuda.get_device_name(0), f"run (k) {tag}: ran on {r['device']}")
+        check(sum(r["launches"].values()) == sum(shapes.values()),
+              f"run (k) {tag}: launches {r['launches']} are not its calls {r['calls']}")
+        want = {("gram", 1, DRY.n // 2, DRY.d): 2}
+        if r["variant"] == "fused":
+            want.update({("dantzig_fused", 1, d_, k_): 1 for d_, k_ in DRY_ADMM})
+        check(shapes == want, f"run (k) {tag}: called {shapes}, expected {want}")
+    return calls, results, seconds
 
 
 def main() -> None:
@@ -1765,6 +1911,10 @@ def main() -> None:
     sv, inputs_s = sync_time(lambda: serving_inputs(dev))
     (serving_held, serving_k1_err), held_s = sync_time(lambda: serving_kernel_checks(sv))
     print(f"[kernels] run (i)'s shapes: inputs {inputs_s:.2f} s, checks {held_s:.2f} s")
+    # runs (j) and (k)'s launch shapes: K1, and K2 and K3, at each shape the lint's cases
+    # and the dry run launch, m = 1
+    jk_held, jk_held_s = sync_time(lambda: analysis_kernel_checks(dev))
+    print(f"[kernels] runs (j)-(k)'s shapes: checks {jk_held_s:.2f} s")
 
     # ---- 3. the main path ---------------------------------------------------
     def estimators(cfg, use_kernel, times):
@@ -2259,6 +2409,20 @@ def main() -> None:
         for kernel, n in counts.items():
             launches[kernel] += n
 
+    # ---- 3 (j)-(k). the op-contract lint and the production-mesh dry run ------------
+    lint_tally, lint_local, phase_s["lint (j)"] = run_lint(card_line)
+    dry_tally, dry_results, phase_s["dry run (k)"] = run_dry(card_line)
+    for tag, tally_jk, want in (("(j)", lint_tally, ("gram", "dantzig_fused",
+                                                     "dantzig_fused_state")),
+                                ("(k)", dry_tally, ("gram", "dantzig_fused"))):
+        keys = set(tally_jk) | (lint_local if tag == "(j)" else set())
+        unheld = sorted(key for key in keys if key not in jk_held)
+        check(not unheld, f"run {tag}: launch shapes held against no plain version: {unheld}")
+        for kernel in want:
+            check(any(key[0] == kernel for key in tally_jk), f"run {tag}: launched no {kernel}")
+        for (kernel, *_), n in tally_jk.items():
+            launches[kernel] += n
+
     # ---- 4. times -------------------------------------------------------------
     name_card = torch.cuda.get_device_name(0)
     xc = xs - mu1.unsqueeze(1)  # bmm's input: the centering is not in the library call
@@ -2308,6 +2472,10 @@ def main() -> None:
                             kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=library_ms,
                             idle_share=max(0.0, 1.0 - sp["device_ms"] / ms), **sp, **lib,
+                            runs_j_k={tag: {str(list(key[1:])): v for key, v in tally_jk.items()
+                                            if key[0] == name}
+                                      for tag, tally_jk in (("(j)", lint_tally),
+                                                            ("(k)", dry_tally))},
                             **extra))
 
     n = n1

@@ -8,6 +8,7 @@ from repro_torch.configs.multiclass_rounds import (  # noqa: F401
     RoundsConfig,
 )
 
+from repro_torch.configs import paper_synthetic
 from repro_torch.configs.paper_synthetic import (  # noqa: F401
     FIXED_N,
     REAL,
@@ -17,3 +18,6 @@ from repro_torch.configs.paper_synthetic import (  # noqa: F401
     SyntheticConfig,
 )
 from repro_torch.configs.serving import SERVING, ServingConfig  # noqa: F401
+
+# the reference's name for the paper's section-5 grid module
+PAPER_SYNTHETIC = paper_synthetic

@@ -178,7 +178,7 @@ def decode_mean(comp: Compression, payloads: Payload, ref: torch.Tensor) -> torc
 
 
 def gather_payloads(comp: Compression, payload: Payload, data_axes: Sequence) -> Payload:
-    """Gather one machine's payload leaves over the data axes (process groups): (m, ...) leaves.
+    """Gather one machine's payload leaves over the data axes: (m, ...) leaves.
 
     The only data a compressed round moves between machines, at the
     wire dtypes (int8 values and float32 scales in int8 mode; int16

@@ -38,6 +38,16 @@ from typing import Any, NamedTuple, Sequence
 
 import torch
 
+from repro_torch.analysis.contracts import (
+    AxisPayloadBits,
+    CollectiveContract,
+    DtypePolicy,
+    GramLaunches,
+    Param,
+    PrimitiveBudget,
+    SmemConformance,
+)
+from repro_torch.analysis.registry import trace_contract
 from repro_torch.core import collectives
 from repro_torch.core import rounds as rounds_core
 from repro_torch.core import slda
@@ -62,8 +72,9 @@ def _materialize_plan(faults, mesh, data_axes, rounds: int, staleness: int,
 
 
 class RankView(NamedTuple):
-    """One rank's place on the mesh: the data axes' process groups, its machine and the
-    machine count, the model axis's group (None: no model axis) and size, its device."""
+    """One rank's place on the mesh: the data axes (:class:`~repro_torch.core.collectives.Axis`),
+    its machine and the machine count, the model axis (None: no model axis) and its size,
+    its device."""
 
     groups: tuple
     machine: int
@@ -84,8 +95,9 @@ class RankView(NamedTuple):
 def rank_view(mesh, data_axes: Sequence[str] = ("data",), model_axis: str | None = None
               ) -> RankView:
     """This rank's :class:`RankView` of ``mesh``."""
-    groups = tuple(mesh.get_group(ax) for ax in data_axes)
-    model = mesh.get_group(model_axis) if model_axis is not None else None
+    groups = tuple(collectives.Axis(ax, mesh.get_group(ax)) for ax in data_axes)
+    model = (collectives.Axis(model_axis, mesh.get_group(model_axis))
+             if model_axis is not None else None)
     return RankView(groups, collectives.machine_index(groups), collectives.machine_count(groups),
                     model, axis_size(mesh, model_axis) if model_axis is not None else 1,
                     mesh_device(mesh))
@@ -106,6 +118,39 @@ def _mesh_setup(mesh, data_axes, model_axis, comm, faults, compression, stalenes
     return view, comm, row
 
 
+@trace_contract(
+    "distributed.slda_shardmap",
+    contracts=(
+        PrimitiveBudget("eigh", exact=1),
+        # Algorithm 1's dense uplink: one (d, 1) psum per dense round --
+        # nothing else crosses the data axis (0 psums when compressed)
+        CollectiveContract("psum", count=Param("dense_psums"), axis="data",
+                           shape=Param("psum_payload"), dtype="float32"),
+        # the DESIGN §11 liveness mask: one scalar f32 psum per masked
+        # dense round (0 on the legacy path), and nothing else -- the
+        # total psum budget closes the loophole
+        CollectiveContract("psum", count=Param("live_psums"), axis="data",
+                           shape=(), dtype="float32"),
+        PrimitiveBudget("psum", exact=Param("total_psums")),
+        CollectiveContract("all_gather", count=Param("rounds"),
+                           axis="model"),
+        # compressed uplink: the payload gathers, and the exact bits
+        # per direction -- uplink payloads on all_gathers, dense psums
+        # + liveness masks + downlink payloads on psums (DESIGN.md §13)
+        CollectiveContract("all_gather", count=Param("data_gathers"),
+                           axis="data"),
+        AxisPayloadBits("data", exact_bits=Param("data_gather_bits"),
+                        prims=("all_gather",)),
+        AxisPayloadBits("data", exact_bits=Param("data_psum_bits"),
+                        prims=("psum",)),
+        AxisPayloadBits("data", exact_bits=Param("data_total_bits")),
+        PrimitiveBudget("is_finite", exact=Param("screen_ops")),
+        PrimitiveBudget("pallas_call", exact=Param("pallas_calls")),
+        GramLaunches(Param("gram_launches")),
+        DtypePolicy(),
+        SmemConformance(),
+    ),
+)
 def distributed_slda_shardmap(mesh, x, y, lam, lam_prime, t,
                               cfg: DantzigConfig = DantzigConfig(),
                               data_axes: Sequence[str] = ("data",),
@@ -133,6 +178,41 @@ def distributed_slda_shardmap(mesh, x, y, lam, lam_prime, t,
     return slda.hard_threshold(beta_bar[:, 0], t)
 
 
+@trace_contract(
+    "distributed.mc_slda_shardmap",
+    contracts=(
+        PrimitiveBudget("eigh", exact=1),
+        # one (d, K) direction psum per DENSE round over the data axis
+        # (0 when compressed) ...
+        CollectiveContract("psum", count=Param("dense_psums"), axis="data",
+                           shape=Param("direction_payload"),
+                           dtype="float32"),
+        # ... plus exactly one (K, d) class-means psum, and nothing else
+        CollectiveContract("psum", count=1, axis="data",
+                           shape=Param("means_payload"), dtype="float32"),
+        # the liveness-mask scalar psum of masked rounds (DESIGN §11)
+        CollectiveContract("psum", count=Param("live_psums"), axis="data",
+                           shape=(), dtype="float32"),
+        PrimitiveBudget("psum", exact=Param("total_psums")),
+        CollectiveContract("all_gather", count=Param("rounds"),
+                           axis="model"),
+        # compressed uplink: the payload gathers, and the exact bits
+        # everything moves over the data axis, split by direction
+        # (the one-time means psum counts on the psum side)
+        CollectiveContract("all_gather", count=Param("data_gathers"),
+                           axis="data"),
+        AxisPayloadBits("data", exact_bits=Param("data_gather_bits"),
+                        prims=("all_gather",)),
+        AxisPayloadBits("data", exact_bits=Param("data_psum_bits"),
+                        prims=("psum",)),
+        AxisPayloadBits("data", exact_bits=Param("data_total_bits")),
+        PrimitiveBudget("is_finite", exact=Param("screen_ops")),
+        PrimitiveBudget("pallas_call", exact=Param("pallas_calls")),
+        GramLaunches(Param("gram_launches")),
+        DtypePolicy(),
+        SmemConformance(),
+    ),
+)
 def distributed_mc_slda_shardmap(mesh, x, labels, num_classes: int, lam, lam_prime, t,
                                  cfg: DantzigConfig = DantzigConfig(),
                                  data_axes: Sequence[str] = ("data",),

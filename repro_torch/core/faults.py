@@ -223,7 +223,7 @@ def select_anchor(history: Sequence[torch.Tensor], stale: torch.Tensor, t: int,
 
 
 def gather_machines(x: torch.Tensor, data_axes: Sequence) -> torch.Tensor:
-    """Machine-stack ``x`` over the data axes (process groups): (...) -> (m, ...).
+    """Machine-stack ``x`` over the data axes: (...) -> (m, ...).
 
     The mesh twin of the simulation's machine axis, for the trimmed mean
     (every machine's block) and the masked compressed path (the

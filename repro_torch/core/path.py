@@ -30,6 +30,14 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis.contracts import (
+    DtypePolicy,
+    GramLaunches,
+    Param,
+    PrimitiveBudget,
+    SmemConformance,
+)
+from repro_torch.analysis.registry import trace_contract
 from repro_torch.core.clime import solve_clime_columns, symmetrize_min
 from repro_torch.core.dantzig import DantzigConfig, kkt_violation
 from repro_torch.core.pipeline import HeadStats
@@ -152,6 +160,20 @@ def _fold_rho(rho, batch: tuple, L: int, k: int) -> torch.Tensor:
     return r.expand(*batch, L, k).reshape(*batch, L * k)
 
 
+@trace_contract(
+    "path.solve_dantzig_path",
+    contracts=(
+        # a raw Sigma is factorized once for the WHOLE sweep; a
+        # SpectralFactor input must run zero eighs
+        PrimitiveBudget("eigh", exact=Param("eighs")),
+        # the lambda grid folds into the column batch: one fused launch
+        # covers all L grid points (scan cfg: none)
+        PrimitiveBudget("pallas_call", exact=Param("pallas_calls")),
+        PrimitiveBudget("psum", exact=0),
+        DtypePolicy(),
+        SmemConformance(),
+    ),
+)
 def solve_dantzig_path(a, b: torch.Tensor, lams, cfg: DantzigConfig = DantzigConfig(), *,
                        rho=None, state: AdmmState | None = None,
                        state_layout: str = "auto") -> PathResult:
@@ -209,6 +231,18 @@ class WorkerPathResult(NamedTuple):
     iters: torch.Tensor  # (..., L, K) executed direction-solve iterations
 
 
+@trace_contract(
+    "path.worker_debiased_path",
+    contracts=(
+        # one eigh funds the direction sweep AND the CLIME block
+        PrimitiveBudget("eigh", exact=1),
+        # fused cfg: folded direction sweep + CLIME = 2 launches
+        PrimitiveBudget("pallas_call", exact=Param("pallas_calls")),
+        GramLaunches(Param("gram_launches")),
+        DtypePolicy(),
+        SmemConformance(),
+    ),
+)
 def worker_debiased_path(head, *data: torch.Tensor, lams, lam_prime,
                          cfg: DantzigConfig = DantzigConfig(), rho_beta=None, rho_theta=None,
                          state_beta: AdmmState | None = None,

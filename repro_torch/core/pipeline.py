@@ -13,7 +13,7 @@ directions in one batched solve).
 
 On the mesh (:mod:`repro_torch.core.distributed`) one rank is one
 machine, or one machine's share of the CLIME columns: with
-``model_axis`` (the model axis's process group) the d columns pad to a
+``model_axis`` (the model :class:`~repro_torch.core.collectives.Axis`) the d columns pad to a
 multiple of the axis size, each rank solves its ``ceil(d / size)``,
 and :func:`apply_correction` reassembles the correction with one
 masked gather over the axis, so any (d, size) pair is exact.
@@ -25,6 +25,14 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.analysis.contracts import (
+    DtypePolicy,
+    GramLaunches,
+    Param,
+    PrimitiveBudget,
+    SmemConformance,
+)
+from repro_torch.analysis.registry import trace_contract
 from repro_torch.core import collectives
 from repro_torch.core.clime import (
     solve_clime_columns,
@@ -264,6 +272,24 @@ def apply_correction(theta: torch.Tensor, valid, resid: torch.Tensor,
     return collectives.all_gather_tiled(corr, model_axis)[:resid.shape[-2]]
 
 
+@trace_contract(
+    "pipeline.worker_debiased",
+    contracts=(
+        # one SpectralFactor per worker: refinement and the lambda path
+        # both reuse it, so a second eigh is always a regression
+        PrimitiveBudget("eigh", exact=1),
+        # fused cfg: direction solve + CLIME block = exactly 2 launches;
+        # scan cfg: none (a third launch means the factor stopped folding)
+        PrimitiveBudget("pallas_call", exact=Param("pallas_calls")),
+        # the binary head's statistics: two K1 launches on the card
+        GramLaunches(Param("gram_launches")),
+        # the unsharded worker communicates nothing
+        PrimitiveBudget("psum", exact=0),
+        PrimitiveBudget("all_gather", exact=0),
+        DtypePolicy(),
+        SmemConformance(),
+    ),
+)
 def worker_debiased(head, *data: torch.Tensor, lam, lam_prime,
                     cfg: DantzigConfig = DantzigConfig(), symmetrize: bool = False):
     """Every machine's debiased estimate of the (d, K) direction block.

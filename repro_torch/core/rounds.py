@@ -35,6 +35,16 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.analysis.contracts import (
+    AxisPayloadBits,
+    CollectiveContract,
+    DtypePolicy,
+    GramLaunches,
+    Param,
+    PrimitiveBudget,
+    SmemConformance,
+)
+from repro_torch.analysis.registry import trace_contract
 from repro_torch.core import collectives
 from repro_torch.core import compression as compression_core
 from repro_torch.core import faults as faults_core
@@ -296,6 +306,41 @@ def _check_plan(faults, expect_shape, where: str) -> None:
                          f"{tuple(faults.live.shape)}")
 
 
+@trace_contract(
+    "rounds.worker_rounds",
+    contracts=(
+        # refinement rounds reuse the round-one SpectralFactor
+        PrimitiveBudget("eigh", exact=1),
+        # the DENSE uplink: one (d, K) f32 psum per dense round over the
+        # data axis -- count AND payload are pinned (0 when compressed:
+        # a compressed call must hold NO dense data-axis psum at all)
+        CollectiveContract("psum", count=Param("dense_psums"), axis="data",
+                           shape=Param("psum_payload"), dtype="float32"),
+        # the liveness mask of DESIGN.md §11: one scalar f32 psum (the
+        # live count) per masked dense round, nothing on the legacy path
+        CollectiveContract("psum", count=Param("live_psums"), axis="data",
+                           shape=(), dtype="float32"),
+        PrimitiveBudget("psum", exact=Param("total_psums")),
+        # intra-machine CLIME reassembly: one model-axis gather per round
+        CollectiveContract("all_gather", count=Param("rounds"),
+                           axis="model"),
+        # compressed uplink: the payload gathers, and the exact bits
+        # per direction -- uplink payloads on all_gathers, dense psums
+        # + liveness masks + downlink payloads on psums (DESIGN.md §13)
+        CollectiveContract("all_gather", count=Param("data_gathers"),
+                           axis="data"),
+        AxisPayloadBits("data", exact_bits=Param("data_gather_bits"),
+                        prims=("all_gather",)),
+        AxisPayloadBits("data", exact_bits=Param("data_psum_bits"),
+                        prims=("psum",)),
+        AxisPayloadBits("data", exact_bits=Param("data_total_bits")),
+        PrimitiveBudget("is_finite", exact=Param("screen_ops")),
+        PrimitiveBudget("pallas_call", exact=Param("pallas_calls")),
+        GramLaunches(Param("gram_launches")),
+        DtypePolicy(),
+        SmemConformance(),
+    ),
+)
 def worker_rounds(head, *data: torch.Tensor, lam, lam_prime, rounds: int = 1,
                   cfg: DantzigConfig = DantzigConfig(), data_axes: Sequence = (),
                   model_axis=None, model_axis_size: int = 1, comm: CommPlan | None = None,
@@ -310,8 +355,9 @@ def worker_rounds(head, *data: torch.Tensor, lam, lam_prime, rounds: int = 1,
     """The T-round refined aggregate on one rank of the mesh.
 
     ``data`` is this rank's machine's samples; ``data_axes`` are the
-    process groups of the mesh's data axes and ``model_axis`` the model
-    axis's (None: this rank solves every CLIME column).  Runs
+    mesh's data axes (:class:`~repro_torch.core.collectives.Axis`) and
+    ``model_axis`` its model axis (None: this rank solves every CLIME
+    column).  Runs
     :func:`~repro_torch.core.pipeline.worker_solves` once (warm from the
     ``rho_*`` / ``state_*`` carries of an earlier call's solves), then
     ``rounds`` closed-form rounds whose means are collectives over the

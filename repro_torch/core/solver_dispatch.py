@@ -27,14 +27,26 @@ would be different math.
 Every entry point accepts either the raw (..., d, d) matrix or its
 :class:`~repro_torch.kernels.spectral.SpectralFactor`, so the one
 eigendecomposition per worker is shared by all of its solves.
+
+:data:`SOLVES` counts the solves dispatched, by implementation: the op
+contracts of :mod:`repro_torch.analysis` read it where the reference's
+read its ADMM loops (``while`` / ``scan``) in a trace.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis.contracts import (
+    DtypePolicy,
+    Param,
+    PrimitiveBudget,
+    SmemConformance,
+)
+from repro_torch.analysis.registry import trace_contract
 from repro_torch.core import dantzig as _dantzig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.dantzig_fused import (
@@ -45,6 +57,8 @@ from repro_torch.kernels.dantzig_fused import (
 )
 from repro_torch.kernels.ref import per_column
 from repro_torch.kernels.spectral import sigma_of
+
+SOLVES: collections.Counter = collections.Counter()
 
 
 class SolverChoice(NamedTuple):
@@ -110,6 +124,7 @@ def solve_dantzig_with_rho(a, b: torch.Tensor, lam,
     d, k = b2.shape[-2:]
     b2 = b2.expand(*mat.shape[:-2], d, k)
     choice = select_solver(cfg, d, k, state_io=False)
+    SOLVES[choice.kind] += 1
     if choice.kind == "scan":
         out, rho_final = _dantzig.solve_dantzig_scan(a, b2, lam, cfg, rho0=rho, return_rho=True)
     else:
@@ -123,6 +138,16 @@ def solve_dantzig_with_rho(a, b: torch.Tensor, lam,
     return out, rho_final
 
 
+@trace_contract(
+    "solver_dispatch.solve_dantzig_full",
+    contracts=(
+        # factor-fed solves must not re-factorize; raw input costs one
+        PrimitiveBudget("eigh", exact=Param("eighs")),
+        PrimitiveBudget("pallas_call", exact=Param("pallas_calls")),
+        DtypePolicy(),
+        SmemConformance(),
+    ),
+)
 def solve_dantzig_full(a, b: torch.Tensor, lam,
                        cfg: "_dantzig.DantzigConfig | None" = None, *,
                        rho=None, state: AdmmState | None = None) -> SolveResult:
@@ -145,6 +170,7 @@ def solve_dantzig_full(a, b: torch.Tensor, lam,
     if state is not None and squeeze:
         state = AdmmState(*(leaf.unsqueeze(-1) for leaf in state))
     choice = select_solver(cfg, d, k, state_io=True)
+    SOLVES[choice.kind] += 1
     if choice.kind == "scan":
         out, rho_final, fstate, iters = _dantzig.solve_dantzig_scan(
             a, b2, lam, cfg, rho0=rho, return_rho=True, state0=state, return_info=True)

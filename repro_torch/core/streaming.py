@@ -16,7 +16,7 @@ layer between the fitted estimator and live traffic:
   accumulated statistics bit-identical to never having seen it.
 * **Incremental refit** -- :func:`refit_step` re-solves the estimator
   from merged :class:`~repro_torch.core.pipeline.HeadStats` (one
-  ``eigh``, counted by :mod:`repro_torch.analysis.counts`), resuming
+  ``eigh``, counted by :mod:`repro_torch.analysis`), resuming
   both solves from the previous refit's warm ``AdmmState``/rho; under a
   fused config with ``tol`` they run in K3.  :func:`refit_with_escalation`
   wraps it in the bounded ladder: warm retry, cold retry, full
@@ -43,6 +43,14 @@ from typing import Any, NamedTuple, Sequence
 
 import torch
 
+from repro_torch.analysis.contracts import (
+    DtypePolicy,
+    GramLaunches,
+    Param,
+    PrimitiveBudget,
+    SmemConformance,
+)
+from repro_torch.analysis.registry import trace_contract
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.core import classifier
 from repro_torch.core import faults as faults_core
@@ -241,6 +249,24 @@ def ingest_stats(aux, batch_aux, weight: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+@trace_contract(
+    "streaming.classify_batch",
+    contracts=(
+        # a query batch touches NO estimator machinery: the score product
+        # is the only matrix product, and there is no eigh, no Dantzig
+        # solve (the reference's while / scan), no kernel call and no
+        # collective anywhere in the call
+        PrimitiveBudget("eigh", exact=0),
+        PrimitiveBudget("while", exact=0),
+        PrimitiveBudget("scan", exact=0),
+        PrimitiveBudget("pallas_call", exact=0),
+        GramLaunches(0),
+        PrimitiveBudget("psum", exact=0),
+        PrimitiveBudget("all_gather", exact=0),
+        PrimitiveBudget("dot_general", exact=1),
+        DtypePolicy(),
+    ),
+)
 def classify_batch(z: torch.Tensor, beta: torch.Tensor, means: torch.Tensor,
                    priors: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The (B, d) @ (d, K) serving hot path: ``(pred (B,), scores (B, K))``.
@@ -250,7 +276,7 @@ def classify_batch(z: torch.Tensor, beta: torch.Tensor, means: torch.Tensor,
     per-class offsets and priors are elementwise
     (:func:`repro_torch.core.classifier.classify_scores`).  Its op
     contract (no ``eigh``, no kernel, no collective, one product) is
-    :data:`repro_torch.analysis.counts.CLASSIFY_BATCH`.
+    declared above it.
     """
     scores = classifier.classify_scores(z, beta, means, priors)
     return scores.argmax(-1), scores
@@ -280,6 +306,22 @@ class RefitResult(NamedTuple):
     iters_theta: torch.Tensor  # (d,)
 
 
+@trace_contract(
+    "streaming.refit_step",
+    contracts=(
+        # ONE fresh factorization per refit -- the moved sigma must be
+        # re-factorized, but never twice (direction + CLIME share it)
+        PrimitiveBudget("eigh", exact=1),
+        PrimitiveBudget("pallas_call", exact=Param("pallas_calls")),
+        # statistics in, so no K1
+        GramLaunches(0),
+        # refit is a single-machine operation: nothing on the wire
+        PrimitiveBudget("psum", exact=0),
+        PrimitiveBudget("all_gather", exact=0),
+        DtypePolicy(),
+        SmemConformance(),
+    ),
+)
 def refit_step(stats: HeadStats, lam, lam_prime, cfg: DantzigConfig = DantzigConfig(),
                carry: RefitCarry | None = None, symmetrize: bool = False) -> RefitResult:
     """Re-solve the estimator from merged sufficient statistics.
@@ -290,7 +332,7 @@ def refit_step(stats: HeadStats, lam, lam_prime, cfg: DantzigConfig = DantzigCon
     the previous refit's warm rho and :class:`AdmmState`.  The solves
     run through :func:`~repro_torch.core.pipeline.solves_from_stats`,
     so the served estimator is the pipeline's.  Its op contract (one
-    ``eigh``, no collective) is :data:`repro_torch.analysis.counts.REFIT_STEP`.
+    ``eigh``, no collective) is declared above it.
     """
     kw = {}
     if carry is not None:

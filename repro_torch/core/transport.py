@@ -237,7 +237,7 @@ class Transport:
 
 
 def psum_broadcast(payload, data_axes: Sequence):
-    """Broadcast the master's payload leaves over the data axes (process groups).
+    """Broadcast the master's payload leaves over the data axes.
 
     Machine 0 of the data axes is the aggregator; every other machine
     sends exact zeros, so the sum is the master's leaf bit for bit

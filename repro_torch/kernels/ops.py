@@ -11,11 +11,17 @@ evidence that a run on the card went through the kernels.
 ``LAUNCH_SHAPES`` splits the same launches by the kernel's operand
 shape, ``(name, m, rows, cols)``: x (m, n, d) for ``gram``, b
 (m, d, k) for the ADMM kernels, x for ``soft_threshold``.
+``CALLS`` and ``CALL_SHAPES`` count the wrapper calls the same way on
+either device (on the CPU a call runs the plain version and launches
+nothing; on the card every call launches once), and ``CALL_BLOCKS``
+the ADMM kernels' calls by ``(name, d, k, block_k)``, the columns per
+block each used: the op contracts of :mod:`repro_torch.analysis` read them.
 """
 
 from __future__ import annotations
 
 import collections
+import math
 
 import torch
 
@@ -31,19 +37,38 @@ from repro_torch.kernels.gram import gram_cuda
 from repro_torch.kernels.soft_threshold import soft_threshold_cuda
 from repro_torch.kernels.spectral import as_spectral_factor
 
-LAUNCHES = {"gram": 0, "dantzig_fused": 0, "dantzig_fused_state": 0, "soft_threshold": 0}
+KERNELS = ("gram", "dantzig_fused", "dantzig_fused_state", "soft_threshold")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
+CALLS = dict.fromkeys(KERNELS, 0)
+CALL_SHAPES: collections.Counter = collections.Counter()
+CALL_BLOCKS: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    LAUNCH_SHAPES.clear()
+    """Zero the launch and the call counts."""
+    for name in KERNELS:
+        LAUNCHES[name] = CALLS[name] = 0
+    for counter in (LAUNCH_SHAPES, CALL_SHAPES, CALL_BLOCKS):
+        counter.clear()
 
 
 def _count(name: str, operand: torch.Tensor) -> None:
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[(name, *operand.shape)] += 1
+
+
+def _called(name: str, shape: tuple, block: tuple | None = None) -> None:
+    """One wrapper call, on either device; ``block`` is an ADMM call's (d, k, block_k)."""
+    CALLS[name] += 1
+    CALL_SHAPES[(name, *shape)] += 1
+    if block is not None:
+        CALL_BLOCKS[(name, *block)] += 1
+
+
+def _machines_shape(batch, *tail) -> tuple:
+    """The kernels' (m, ...) operand shape of a batch with leading dimensions ``batch``."""
+    return (math.prod(batch), *tail)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -56,6 +81,7 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def gram(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     """Mean-centered Gram (X - mu)^T (X - mu): x (..., n, d), mu (..., d) -> (..., d, d)."""
+    _called("gram", _machines_shape(x.shape[:-2], *x.shape[-2:]))
     if not _on_card(x):
         return ref.gram_ref(x, mu)
     *batch, n, d = x.shape
@@ -67,6 +93,7 @@ def gram(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
 
 def soft_threshold(x: torch.Tensor, t) -> torch.Tensor:
     """Shrink sign(x) * max(|x| - t, 0); ``t`` scalar or per column, (..., 1, c)."""
+    _called("soft_threshold", tuple(x.shape))
     if not _on_card(x):
         return ref.soft_threshold_ref(x, t)
     out = soft_threshold_cuda(x.contiguous(), t)
@@ -98,8 +125,10 @@ def dantzig_fused(a, b: torch.Tensor, lam, *, iters: int = 500, rho=1.0,
     factor = as_spectral_factor(a)
     *batch, d, k = b.shape
     state_io = tol is not None or state is not None or return_info
+    name = "dantzig_fused_state" if state_io else "dantzig_fused"
+    bk = resolve_block_k(d, k, block_k, state_io=state_io)
+    _called(name, _machines_shape(batch, d, k), (d, k, bk))
     if state_io:
-        bk = resolve_block_k(d, k, block_k, state_io=True)
         result = _dantzig_fused_state(factor, b, lam, iters, rho, alpha, bk, tol,
                                       check_every, state)
         return result if return_info else result.beta

@@ -4,8 +4,9 @@
 (``run_on_mesh(run_cases, data, model, arrays, cases, ...)``): one
 spawn of the mesh serves every case.  For each :class:`MeshCase` every
 rank resets its kernel launch counts (:data:`repro_torch.kernels.ops.LAUNCHES`
-and their split by shape, ``LAUNCH_SHAPES``) and its wire tally
-(:data:`repro_torch.core.collectives.TALLY`), runs the face, and rank 0
+and their split by shape, ``LAUNCH_SHAPES``), its wire tally
+(:data:`repro_torch.core.collectives.TALLY`) and its collective records,
+runs the face, and rank 0
 collects, beside the replicated result, each rank's launches and
 launch shapes, the bits its data- and model-axis collectives put on
 the wire, its seconds in collectives and its wall seconds.
@@ -106,10 +107,11 @@ def _reentry(mesh, arrays, *, lam, lam_prime, cfg, rounds: int = 1, model_axis="
         BinaryHead(), x, y, rho_beta=ws.rho_beta, rho_theta=ws.rho_theta,
         state_beta=ws.state_beta, state_theta=ws.state_theta, **kw)
 
-    counts = torch.tensor([int(w.iters_beta.sum()) + int(w.iters_theta.sum())
-                           for w in (ws, ws_warm)], dtype=torch.int64, device=x.device)
-    dist.all_reduce(counts)  # a check's own sum, outside the port's wire and its tally
-    return cold, warm, int(counts[0]), int(counts[1])
+    mine = [int(w.iters_beta.sum()) + int(w.iters_theta.sum()) for w in (ws, ws_warm)]
+    # a check's own exchange, outside the port's wire, its tally and its records
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return cold, warm, sum(r[0] for r in every), sum(r[1] for r in every)
 
 
 def _resume(mesh, arrays, *, lam, lam_prime, cfg, rounds: int, split: int, comm,
@@ -148,6 +150,7 @@ def run_cases(mesh, arrays: dict, cases) -> dict[str, dict[str, Any]]:
     for case in cases:
         ops.reset_launches()
         collectives.TALLY.reset()
+        collectives.reset_records()
         _sync(dev)
         t0 = time.perf_counter()
         out = _cpu(_face(mesh, arrays, case.face, case.kwargs))

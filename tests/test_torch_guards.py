@@ -79,6 +79,11 @@ SERVING_MODULES = ["repro_torch.core.streaming", "repro_torch.checkpoint.io",
                    "repro_torch.launch.serve", "repro_torch.analysis.counts"]
 
 
+ANALYSIS_MODULES = ["repro_torch.analysis.contracts", "repro_torch.analysis.registry",
+                    "repro_torch.analysis.cases", "repro_torch.analysis.imports",
+                    "repro_torch.analysis.lint", "repro_torch.launch.dryrun_slda"]
+
+
 @pytest.mark.parametrize("name", SLICE_MODULES)
 def test_multiclass_and_rounds_modules_stand_alone_and_default_to_the_card(name):
     _stands_alone_and_defaults_to_the_card(name)
@@ -92,6 +97,30 @@ def test_mesh_modules_stand_alone_and_default_to_the_card(name):
 @pytest.mark.parametrize("name", SERVING_MODULES)
 def test_serving_modules_stand_alone_and_default_to_the_card(name):
     _stands_alone_and_defaults_to_the_card(name)
+
+
+@pytest.mark.parametrize("name", ANALYSIS_MODULES)
+def test_analysis_modules_stand_alone_and_default_to_the_card(name):
+    _stands_alone_and_defaults_to_the_card(name)
+
+
+def test_configs_keep_the_references_names():
+    import repro.configs as jax_configs
+    from repro_torch import configs
+
+    assert configs.PAPER_SYNTHETIC.SYNTHETIC is configs.SYNTHETIC
+    assert set(jax_configs.__all__) <= set(dir(configs))
+
+
+def test_analysis_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.analysis import lint
+    from repro_torch.launch import dryrun_slda
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lint.main(["--no-imports", "--entry", "streaming.classify_batch"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_slda.main(["--d", "8", "--n", "8", "--iters", "1", "--out", ""])
 
 
 def test_serving_entry_points_default_to_the_card(monkeypatch, tmp_path):

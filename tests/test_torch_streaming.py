@@ -32,7 +32,7 @@ from repro.core.pipeline import mc_suff_stats as jax_mc_suff_stats
 from repro.core.pipeline import suff_stats as jax_suff_stats
 from repro.stats import synthetic as jax_synthetic
 from repro_torch import interop
-from repro_torch.analysis import counts
+from repro_torch.analysis import check_entry, count_ops
 from repro_torch.checkpoint import io as ckpt
 from repro_torch.core import classifier, faults, pipeline
 from repro_torch.core import streaming as st
@@ -515,33 +515,43 @@ def test_counted_contracts(head, fused):
         aux = mc_suff_stats(torch.from_numpy(x), torch.from_numpy(rng.integers(0, 4, 300)), 4)
     _, cfg = _cfgs(tol=1e-3, fused=fused, max_iters=100)
     rt = st.ServingRuntime(aux, LAM, LAM_P, THRESH, cfg=cfg, device="cpu", _defer_fit=True)
-    res, refit = counts.count_ops(st.refit_step, st.head_stats_of(rt.aux), LAM, LAM_P, cfg)
-    assert counts.REFIT_STEP.violations(refit) == [] and refit.eigh == 1
+    res, refit = count_ops(st.refit_step, st.head_stats_of(rt.aux), LAM, LAM_P, cfg)
+    assert check_entry("streaming.refit_step", refit, {"pallas_calls": 2 if fused else 0}) == []
+    assert refit.eigh == 1
     rt._stage(res, 1)
     z = torch.from_numpy(rng.standard_normal((64, D)).astype(np.float32))
-    _, served = counts.count_ops(rt.classify, z)
-    assert counts.CLASSIFY_BATCH.violations(served) == []
-    assert (served.eigh, served.matmul, served.launches) == (0, 1, 0)
+    _, served = count_ops(rt.classify, z)
+    assert check_entry("streaming.classify_batch", served, {}) == []
+    assert (served.eigh, served.matmul, sum(served.calls.values())) == (0, 1, 0)
     # the counter sees what it is asked to forbid
-    _, bad = counts.count_ops(lambda: (spectral_factor(torch.eye(3, dtype=torch.float64)),
-                                       z @ z.mT, z.mT @ z))
-    assert len(counts.CLASSIFY_BATCH.violations(bad)) == 3  # eigh, a second product, f64
+    _, bad = count_ops(lambda: (spectral_factor(torch.eye(3, dtype=torch.float64)),
+                                z @ z.mT, z.mT @ z))
+    tripped = {v.contract for v in check_entry("streaming.classify_batch", bad, {})}
+    assert tripped == {"budget[eigh ==0]", "budget[dot_general ==1]",
+                       "dtype[float <= float32]"}  # eigh, a second product, f64
 
 
 def test_counter_sees_collectives(tmp_path):
     import torch.distributed as dist
 
+    from repro_torch.core import collectives
+
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
                             world_size=1)
     try:
         x = torch.ones(3)
-        _, c = counts.count_ops(lambda: dist.all_reduce(x))
+        axis = collectives.Axis("data", dist.group.WORLD)
+        _, c = count_ops(lambda: dist.all_reduce(x))
+        _, recorded = count_ops(lambda: collectives.all_reduce_sum(x, (axis,)))
     finally:
         dist.destroy_process_group()
-    assert c.collectives == 1
-    assert counts.REFIT_STEP.violations(c) == [
-        "streaming.refit_step: eigh 0, contract 1",
-        "streaming.refit_step: collectives 1, contract 0"]
+    # a raw backend collective is seen, though no record accounts for it
+    assert c.collective_count("psum") == 1 and c.unrecorded == {"psum": 1}
+    assert [v.message for v in check_entry("streaming.refit_step", c, {"pallas_calls": 0})] == [
+        "found 0 `eigh`, expected exactly 1",
+        "found 1 `psum`, expected exactly 0"]
+    assert recorded.unrecorded == {} and [r.op for r in recorded.collectives] == ["psum"]
+    assert recorded.collectives[0].axes == ("data",) and recorded.collectives[0].bits == 96
 
 
 # ---------------------------------------------------------------------------
