@@ -25,6 +25,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.analysis.contracts import (
     DtypePolicy,
     GramLaunches,
@@ -79,17 +80,18 @@ def suff_stats(x: torch.Tensor, y: torch.Tensor, use_kernel: bool | None = None)
     if use_kernel is None:
         use_kernel = x.is_cuda
     n1, n2 = x.shape[-2], y.shape[-2]
-    mu1 = x.mean(-2)
-    mu2 = y.mean(-2)
-    if use_kernel:
-        g1 = kops.gram(x, mu1)
-        g2 = kops.gram(y, mu2)
-    else:
-        xc = x - mu1.unsqueeze(-2)
-        yc = y - mu2.unsqueeze(-2)
-        g1 = xc.mT @ xc
-        g2 = yc.mT @ yc
-    sigma = (g1 + g2) / (n1 + n2)
+    with obs.span("repro_torch.suff_stats"):
+        mu1 = x.mean(-2)
+        mu2 = y.mean(-2)
+        if use_kernel:
+            g1 = kops.gram(x, mu1)
+            g2 = kops.gram(y, mu2)
+        else:
+            xc = x - mu1.unsqueeze(-2)
+            yc = y - mu2.unsqueeze(-2)
+            g1 = xc.mT @ xc
+            g2 = yc.mT @ yc
+        sigma = (g1 + g2) / (n1 + n2)
     return SuffStats(sigma, mu1, mu2, n1, n2)
 
 
@@ -153,8 +155,9 @@ def debias(sigma: torch.Tensor, rhs: torch.Tensor, beta_hat: torch.Tensor,
     vector = beta_hat.ndim == sigma.ndim - 1
     if vector:
         rhs, beta_hat = rhs.unsqueeze(-1), beta_hat.unsqueeze(-1)
-    resid = sigma @ beta_hat - rhs
-    out = beta_hat - theta_hat.mT @ resid
+    with obs.span("repro_torch.debias"):
+        resid = sigma @ beta_hat - rhs
+        out = beta_hat - theta_hat.mT @ resid
     return out[..., 0] if vector else out
 
 
@@ -238,17 +241,22 @@ def solves_from_stats(hs: HeadStats, *, lam, lam_prime, cfg: DantzigConfig = Dan
         cols, valid = model_columns(d, collectives.group_rank(model_axis), size,
                                     hs.rhs.device)
     if full:
-        dir_res = solve_dantzig_full(factor, hs.rhs, lam, cfg, rho=rho_beta, state=state_beta)
-        theta_res = solve_clime_columns_full(factor, cols, lam_prime, cfg, rho=rho_theta,
-                                             state=state_theta)
+        with obs.span("repro_torch.solve.direction"):
+            dir_res = solve_dantzig_full(factor, hs.rhs, lam, cfg, rho=rho_beta,
+                                         state=state_beta)
+        with obs.span("repro_torch.solve.clime"):
+            theta_res = solve_clime_columns_full(factor, cols, lam_prime, cfg, rho=rho_theta,
+                                                 state=state_theta)
         beta_hat, theta = dir_res.beta, theta_res.beta
         carries = dict(rho_beta=dir_res.rho, rho_theta=theta_res.rho,
                        state_beta=dir_res.state, state_theta=theta_res.state,
                        iters_beta=dir_res.iters, iters_theta=theta_res.iters)
     else:
-        beta_hat = solve_dantzig(factor, hs.rhs, lam, cfg, rho=rho_beta, state=state_beta)
-        theta = solve_clime_columns(factor, cols, lam_prime, cfg, rho=rho_theta,
-                                    state=state_theta)
+        with obs.span("repro_torch.solve.direction"):
+            beta_hat = solve_dantzig(factor, hs.rhs, lam, cfg, rho=rho_beta, state=state_beta)
+        with obs.span("repro_torch.solve.clime"):
+            theta = solve_clime_columns(factor, cols, lam_prime, cfg, rho=rho_theta,
+                                        state=state_theta)
         carries = dict(rho_beta=None, rho_theta=None, state_beta=None, state_theta=None,
                        iters_beta=None, iters_theta=None)
     if symmetrize:

@@ -43,6 +43,7 @@ from typing import Any, NamedTuple, Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.analysis.contracts import (
     DtypePolicy,
     GramLaunches,
@@ -347,6 +348,12 @@ def refit_step(stats: HeadStats, lam, lam_prime, cfg: DantzigConfig = DantzigCon
         ws.iters_beta, ws.iters_theta)
 
 
+def _read(to_host, value: torch.Tensor):
+    """``to_host(value)``: a blocking read of a device value, marked as one."""
+    with obs.span("repro_torch.host_read"):
+        return to_host(value)
+
+
 def refit_converged(res: RefitResult, cfg: DantzigConfig) -> bool:
     """Host-side convergence verdict for one refit attempt.
 
@@ -356,12 +363,11 @@ def refit_converged(res: RefitResult, cfg: DantzigConfig) -> bool:
     the counts are per column block); the fixed-iteration schedule
     (``tol=None``) fails only by producing non-finite values.
     """
-    finite = bool(torch.isfinite(res.beta_tilde).all() & torch.isfinite(res.theta).all())
-    if not finite:
+    if not _read(bool, torch.isfinite(res.beta_tilde).all() & torch.isfinite(res.theta).all()):
         return False
     if cfg.tol is None:
         return True
-    executed = max(int(res.iters_beta.max()), int(res.iters_theta.max()))
+    executed = max(_read(int, res.iters_beta.max()), _read(int, res.iters_theta.max()))
     return executed < cfg.max_iters
 
 
@@ -414,13 +420,15 @@ def refit_with_escalation(stats: HeadStats, lam, lam_prime, cfg: DantzigConfig,
     for attempt, (name, c, cfg_a, st) in enumerate(ladder[: policy.max_attempts]):
         if attempt > 0 and policy.backoff_s > 0:
             time.sleep(policy.backoff_s * (2 ** (attempt - 1)))
-        res = refit_step(st, lam, lam_prime, cfg_a, carry=c)
-        if attempt < inject_fail_attempts:
-            res = res._replace(beta_tilde=torch.full_like(res.beta_tilde, float("nan")))
-        ok = refit_converged(res, cfg_a)
-        log.append({"attempt": name, "converged": ok,
-                    "iters_beta": int(res.iters_beta.max()),
-                    "iters_theta": int(res.iters_theta.max())})
+        with obs.span(f"repro_torch.rung.{name}"):
+            res = refit_step(st, lam, lam_prime, cfg_a, carry=c)
+            if attempt < inject_fail_attempts:
+                res = res._replace(beta_tilde=torch.full_like(res.beta_tilde, float("nan")))
+            with obs.span("repro_torch.verdict"):
+                ok = refit_converged(res, cfg_a)
+                log.append({"attempt": name, "converged": ok,
+                            "iters_beta": _read(int, res.iters_beta.max()),
+                            "iters_theta": _read(int, res.iters_theta.max())})
         if ok:
             return res, log
     return None, log
@@ -626,7 +634,6 @@ class ServingRuntime:
         self.factor: SpectralFactor | None = None
         self.missed = 0
         self.ladder_log: list[dict] = []
-        self.queries = 0
         self.slot: ModelSlot | None = None
         if not _defer_fit:
             res, log = refit_with_escalation(head_stats_of(self.aux), lam, lam_prime, cfg,
@@ -684,9 +691,9 @@ class ServingRuntime:
 
     def classify(self, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The hot path: (B, d) queries -> (pred (B,), scores (B, Kc))."""
-        s = self.slot
-        self.queries += int(z.shape[0])
-        return classify_batch(z, s.beta, s.means, s.priors)
+        with obs.span("repro_torch.classify"):
+            s = self.slot
+            return classify_batch(z, s.beta, s.means, s.priors)
 
     def ingest_batch(self, batch_aux, *raw: torch.Tensor) -> bool:
         """Screen and merge one arriving batch; returns acceptance.
@@ -695,12 +702,16 @@ class ServingRuntime:
         are touched), ``batch_aux`` their sufficient statistics.  The
         unprotected baseline merges blindly.
         """
-        if not self.protect:
-            self.aux = merge_stats(self.aux, batch_aux)
-            return True
-        w = screen_batch(self.ingest_policy, *raw)
-        self.aux = ingest_stats(self.aux, batch_aux, w)
-        return bool(w > 0)
+        with obs.span("repro_torch.ingest"):
+            if not self.protect:
+                with obs.span("repro_torch.ingest.merge"):
+                    self.aux = merge_stats(self.aux, batch_aux)
+                return True
+            with obs.span("repro_torch.ingest.screen"):
+                w = screen_batch(self.ingest_policy, *raw)
+            with obs.span("repro_torch.ingest.merge"):
+                self.aux = ingest_stats(self.aux, batch_aux, w)
+            return _read(bool, w > 0)
 
     def refresh(self, drop: bool = False, inject_diverge: int = 0) -> bool:
         """Attempt one model refresh; returns True when published.
@@ -713,22 +724,28 @@ class ServingRuntime:
         if drop:
             self.missed += 1
             return False
-        if not self.protect:
-            # fragile baseline: one attempt, no verdict, publish whatever
-            res = refit_step(head_stats_of(self.aux), self.lam, self.lam_prime, self.cfg)
-            if inject_diverge > 0:
-                res = res._replace(beta_tilde=torch.full_like(res.beta_tilde, float("nan")))
-            self._stage(res, version=int(self.slot.version) + 1)
+        with obs.span("repro_torch.refresh"):
+            if not self.protect:
+                # fragile baseline: one attempt, no verdict, publish whatever
+                res = refit_step(head_stats_of(self.aux), self.lam, self.lam_prime, self.cfg)
+                if inject_diverge > 0:
+                    res = res._replace(beta_tilde=torch.full_like(res.beta_tilde, float("nan")))
+                self._publish(res)
+                return True
+            res, log = refit_with_escalation(head_stats_of(self.aux), self.lam, self.lam_prime,
+                                             self.cfg, self.carry, self.escalation,
+                                             inject_fail_attempts=inject_diverge)
+            self.ladder_log.extend(log)
+            if res is None:
+                self.missed += 1
+                return False
+            self._publish(res)
             return True
-        res, log = refit_with_escalation(head_stats_of(self.aux), self.lam, self.lam_prime,
-                                         self.cfg, self.carry, self.escalation,
-                                         inject_fail_attempts=inject_diverge)
-        self.ladder_log.extend(log)
-        if res is None:
-            self.missed += 1
-            return False
-        self._stage(res, version=int(self.slot.version) + 1)
-        return True
+
+    def _publish(self, res: RefitResult) -> None:
+        """Stage a refresh's refit as the next version of the slot."""
+        with obs.span("repro_torch.publish"):
+            self._stage(res, version=_read(int, self.slot.version) + 1)
 
 
 def corrupt_batch_arrays(code: int, arrays: Sequence[torch.Tensor]) -> tuple:

@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
+
 
 class SpectralFactor(NamedTuple):
     """``sigma = q @ diag(evals) @ q.mT``, per machine along leading dimensions."""
@@ -46,8 +48,9 @@ def spectral_factor(sigma: torch.Tensor) -> SpectralFactor:
     may instead raise on such input, so ``eigh`` sees zeros there and
     the NaN is selected in after (finite matrices are factorized as given).
     """
-    finite = torch.isfinite(sigma).all(-1, keepdim=True).all(-2, keepdim=True)
-    evals, q = torch.linalg.eigh(torch.where(finite, sigma, 0.0))
+    with obs.span("repro_torch.spectral_factor"):
+        finite = torch.isfinite(sigma).all(-1, keepdim=True).all(-2, keepdim=True)
+        evals, q = torch.linalg.eigh(torch.where(finite, sigma, 0.0))
     return SpectralFactor(sigma, torch.where(finite, q, float("nan")),
                           torch.where(finite[..., 0], evals, float("nan")))
 

@@ -1,0 +1,41 @@
+"""Named spans around the runtime's steps, on the profiler's clock.
+
+The fit and the serving runtime mark their steps with :func:`span`:
+``repro_torch.suff_stats``, ``.spectral_factor``, ``.solve.direction``,
+``.solve.clime``, ``.debias`` and ``.rounds`` in a fit;
+``repro_torch.classify``, ``.ingest`` (``.ingest.screen``,
+``.ingest.merge``), ``.refresh``, ``.rung.warm`` / ``.cold`` /
+``.refactor``, ``.verdict`` and ``.publish`` in serving; and
+``repro_torch.host_read`` around each blocking read of a device value
+by the serving runtime, so that their number counts the reads.  A
+span's parent is the span that encloses it.
+
+To see them, run the calls under the profiler and export its trace::
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runtime.classify(z)
+        runtime.refresh()
+    prof.export_chrome_trace("serving.json")  # chrome://tracing or Perfetto
+
+The spans are the profiler's own host events, on the timeline of its
+device events.  With no profiler recording, a span costs one read of
+the profiler's flag and enters a shared null context.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+from torch.autograd import profiler as _profiler
+from torch.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks ``name`` in the profiler's trace while one records; else a no-op."""
+    if _profiler._is_profiler_enabled:
+        return record_function(name)
+    return _OFF
