@@ -7,7 +7,9 @@ One command runs one cell once::
 Everything that belongs to one cell, configuration or per-layer metric
 sits in a file of its own, found by the name ``BENCHMARK.json`` gives:
 
-* ``configs/<config>.json``: the deployment's sizes, tuning and source;
+* ``configs/<config>.json``: the deployment's sizes, tuning and source
+  (and, optionally, ``"cpu_test"``: the sizes its CPU tests keep, where
+  its driver's would lose its shape);
 * ``workloads/<cell>.json``: the cell's configuration, traffic driver,
   traffic parameters and the limits of its correctness check;
 * ``traffic/<driver>.py``: a general generator and timed loop that reads

@@ -3,7 +3,10 @@
 ``root`` is the checkout: ``root/BENCHMARK.json``, and under
 ``root/portbench/`` the ``configs/``, ``workloads/`` and
 ``layer_metrics/`` files.  A cell, a configuration or a per-layer metric
-is added by adding its file and its entry; nothing here names one.
+is added by adding its file and its entry; nothing here names one, and
+nothing in ``portbench/testing.py`` either: the CPU tests shrink a cell
+by its driver's ``shrink_for_cpu_tests``, then by its configuration's
+optional ``"cpu_test"`` object, which no run reads.
 """
 
 from __future__ import annotations

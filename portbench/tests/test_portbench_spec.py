@@ -76,19 +76,25 @@ def test_every_metric_reader_loads_and_reads_nothing_from_an_empty_window(metric
     assert read(empty) is None
 
 
-def test_a_throwaway_cell_config_and_metric_run_from_files_alone(tmp_path):
-    root = testing.tiny_root(tmp_path)
-    pb = root / "portbench"
+# the paper's section 5.1 design at d = 1,000: m = 20 sites of 250 + 250 rows, so n < d a site
+FULL_SIZE = dict(d=1000, m=20, n1=250, n2=250, N=10000, max_iters=500)
+
+
+@pytest.mark.parametrize("cpu_test", [dict(d=48, n1=12, n2=12, N=96), None],
+                         ids=["own_cpu_test", "driver_sizes"])
+def test_a_throwaway_cell_config_and_metric_run_from_files_alone(tmp_path, cpu_test):
+    src = testing.copy_data_files(spec.ROOT, tmp_path / "src")
+    pb = src / "portbench"
     conf = json.loads((pb / "configs" / "sec51_d200_m20.json").read_text())
-    conf.update(m=2)
+    conf.update(FULL_SIZE, **({"cpu_test": cpu_test} if cpu_test else {}))
     (pb / "configs" / "throwaway.json").write_text(json.dumps(conf))
     (pb / "workloads" / "throwaway.two.json").write_text(json.dumps(
-        {"config": "throwaway", "driver": "fits", "traffic": {"pool": 2, "trace_units": 1},
+        {"config": "throwaway", "driver": "fits", "traffic": {"pool": 16, "trace_units": 8},
          "limits": {"beta_gap": 1e-4}}))
     (pb / "layer_metrics" / "fits_seen.two.py").write_text(
         "def read(tr):\n    return tr.counts.get('fits')\n")
-    bench = json.loads((root / "BENCHMARK.json").read_text())
-    bench["configs"].append({"name": "throwaway", "source": "a test", "reduced": ["m"],
+    bench = json.loads((src / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "throwaway", "source": "a test", "reduced": [],
                              "file": "portbench/configs/throwaway.json", "why": "a test"})
     bench["workloads"].append({"name": "throwaway.two", "config": "throwaway", "traffic": "two",
                                "chips": 1, "why": "a test"})
@@ -97,15 +103,23 @@ def test_a_throwaway_cell_config_and_metric_run_from_files_alone(tmp_path):
     bench["per_layer"].append({"name": "fits_seen.two", "unit": "fits", "better": "higher",
                                "source": "program_counter", "layer": "device",
                                "moves": "fit_ms", "workloads": ["throwaway.two"]})
-    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    (src / "BENCHMARK.json").write_text(json.dumps(bench))
 
+    root = testing.tiny_root(tmp_path / "tiny", source=src)
+    assert spec.cell("throwaway.two", src).config["d"] == 1000
     cell = spec.cell("throwaway.two", root)
+    testing.check_cpu_sizes(root, "throwaway")
+    if cpu_test:
+        assert cell.config["n1"] + cell.config["n2"] < cell.config["d"] == cpu_test["d"]
+    else:
+        assert cell.config == spec.cell("sec51_d200_m20.oneshot", root).config
     assert [m["name"] for m in cell.per_layer] == ["fits_seen.two"]
     tr = trace.Trace((0, 1), [], [], {"fits": 3}, {}, {})
     assert spec.reader("fits_seen.two", root)(tr) == 3
     result = run.run_cell("throwaway.two", 2**31 + 5, 0.2, False, torch.device("cpu"),
                           root=root)
-    assert result["correct"] and set(result["metrics"]) == {"setup_s", "fit_ms"}
+    assert result["correct"], result["checks"]
+    assert set(result["metrics"]) == {"setup_s", "fit_ms"}
 
 
 def test_the_data_files_are_only_what_benchmark_json_names():

@@ -10,4 +10,8 @@ run produced).  ``system`` is ``"program"`` (the port) or
 ``"control"`` (the reference in TF32, put in the port's place).  A
 driver whose cells have per-layer metrics on the host's clock also
 gives ``timed(record)``: each call's seconds, by the call's name.
+Every driver also gives ``shrink_for_cpu_tests(config, traffic)``,
+which shrinks a configuration and a traffic mix of its cells, in place,
+to the CPU tests' sizes (``portbench.testing.tiny_root``); no run calls
+it.
 """

@@ -88,6 +88,13 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def shrink_for_cpu_tests(config: dict, traffic: dict) -> None:
+    """Shrink, in place, a configuration and a traffic mix of this driver to the CPU tests'
+    sizes (``portbench.testing.tiny_root``); a run of a cell never calls it."""
+    config.update(d=24, n_signal=4, m=4, n1=30, n2=30, N=240, max_iters=60)
+    traffic.update(pool=4, trace_units=2)
+
+
 def setup(cell, device: torch.device, seed: int, system: str = "program", log=print) -> Setup:
     c, p = cell.config, cell.traffic
     prob = sampler.problem(c["d"], c["n_signal"], c["rho"], device)

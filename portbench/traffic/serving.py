@@ -53,6 +53,8 @@ from repro_torch.core.faults import Aggregation
 
 # seed samples drawn at most: a sample whose cold fit fails the ladder is drawn again
 SEED_DRAWS = 8
+# the CPU tests' epoch, where a cell's is longer than 24 ticks
+CPU_TEST_EPOCH = dict(epoch_ticks=32, ingest_every=4, refresh_every=16)
 
 
 class Setup(NamedTuple):
@@ -146,6 +148,19 @@ class Control:
 def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def shrink_for_cpu_tests(config: dict, traffic: dict) -> None:
+    """Shrink, in place, a configuration and a traffic mix of this driver to the CPU tests'
+    sizes (``portbench.testing.tiny_root``); a run of a cell never calls it.  The K3 gate
+    block is the port's at the small width (one block of all d columns)."""
+    config.update(d=24, n_signal=4, n_seed=200, tol=1e-2, gate_block_cols=24)
+    traffic.update(batch=256, query_pool=4, sampled_ticks=8, trace_units=2)
+    traffic["sessions"] = min(traffic["sessions"], 2)
+    traffic["judged_sessions"] = min(traffic["judged_sessions"], 2)
+    if traffic["epoch_ticks"] > 24:
+        # an interval of 0 (never) stays 0
+        traffic.update({k: v for k, v in CPU_TEST_EPOCH.items() if traffic[k]})
 
 
 def setup(cell, device: torch.device, seed: int, system: str = "program", log=print) -> Setup:
