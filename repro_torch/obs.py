@@ -7,8 +7,11 @@ The fit and the serving runtime mark their steps with :func:`span`:
 ``.ingest.merge``), ``.refresh``, ``.rung.warm`` / ``.cold`` /
 ``.refactor``, ``.verdict`` and ``.publish`` in serving; and
 ``repro_torch.host_read`` around each blocking read of a device value
-by the serving runtime, so that their number counts the reads.  A
-span's parent is the span that encloses it.
+by the serving runtime, so that their number counts the reads; and
+``repro_torch.admm.streamed`` around each K2 or K3 launch on the
+streamed template (``kernels/dantzig_fused.py``, with the A^T and Q^T
+it builds), so that their number counts those launches; a launch on the
+cluster template has none.  A span's parent is the span that encloses it.
 
 To see them, run the calls under the profiler and export its trace::
 
