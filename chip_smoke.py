@@ -45,7 +45,11 @@ Phases, each of which exits non-zero on failure:
    on another Sigma_hat, through the same checks; and at runs (j) and
    (k)'s (m = 1): K1 at (n, d) in ``LINT_K1`` and (2,048, 256), K2 and
    K3 at each (d, k) of ``LINT_ADMM`` at 40 iterations and at (256, 1)
-   and (256, 16) at 500, through the edge shapes' checks; and what
+   and (256, 16) at 500, through the edge shapes' checks; and K2 at the
+   d = 1,000 shapes of the ``sec51_d1000_m20`` fit on the streamed
+   template (``D1000``: the direction, m = 20, k = 1, and a 2-machine
+   slice of the CLIME block), within the K2 pin of the plain version and
+   bit for bit against narrower column blocks and K3 at ``tol=None``; and what
    cuSOLVER's eigh does with a non-finite Sigma_hat (the port's factor
    is all NaN);
 3. main path: Algorithm 1 at the paper's §5.1 size (d = 200, AR(0.8),
@@ -128,7 +132,9 @@ Phases, each of which exits non-zero on failure:
    host time (``host_us``: the wrapper's wall time over unsynchronised
    calls), K1 also with the L2 cache flushed before each call; and the
    four K2/K3 calls at every cluster size that fits and on the streamed
-   template, in turns; and each launch shape of runs (d), (e), the
+   template, in turns; K2 at the d = 1,000 shapes, the CLIME slice at
+   8, 16 and 24 columns a block, in turns, against the bound; and each
+   launch shape of runs (d), (e), the
    mesh runs and run (i) (time, device and host split, bound, launches),
    with the runs' stages.
 
@@ -431,6 +437,14 @@ RECORDED_DIGESTS = {
     "K3 fold": "6cd3fcb2f015fa2ca3e327447966edbfecbc0803a4e2848316f4c67cdaa41c42"}
 
 
+# K2's d = 1,000 launch shapes, on the streamed template (no cluster fits): the
+# sec51_d1000_m20 fit's direction (20 machines, k = 1) and a 2-machine slice of its
+# CLIME block, each machine's Sigma_hat from 500 rows (rank-deficient, as there);
+# the slice is held and timed at every column block of D1000_TILES
+D1000 = SimpleNamespace(d=1000, n=500, shapes=(("direction", 20, 1), ("CLIME slice", 2, 1000)),
+                        tiles=(8, 16, 24))
+
+
 def launch_shape(m: int, d: int, k: int, state_io: bool) -> dict:
     """The template the cluster model picks for a launch shape and what the card reports
     for it: cluster size (0: streamed), micro-tile, shared memory per block, registers,
@@ -475,6 +489,87 @@ def edge_shape_checks(label, d, k, m, iters, split, gen) -> None:
     lam = 0.02 + 0.05 * torch.rand(m, k, generator=gen, device=dev)
     rho = 0.5 + torch.rand(m, k, generator=gen, device=dev)
     shape_checks(f"edge {label}", fac, b, lam, rho, iters, split)
+
+
+def d1000_inputs(gen) -> dict:
+    """(a, q, inv, b, lam, rho) of each D1000 shape, and the factor's sigma for the plain
+    version."""
+    from repro_torch.kernels.spectral import spectral_factor
+
+    dev, d = torch.device(DEVICE), D1000.d
+    out = {}
+    for label, m, k in D1000.shapes:
+        x = torch.randn(m, D1000.n, d, generator=gen, device=dev)
+        fac = spectral_factor(x.mT @ x / D1000.n)
+        b = (torch.eye(d, device=dev).expand(m, d, d) if k == d
+             else torch.randn(m, d, k, generator=gen, device=dev)).contiguous()
+        lam = 0.05 + 0.05 * torch.rand(m, k, generator=gen, device=dev)
+        out[label] = (fac.sigma.contiguous(), fac.q.contiguous(), fac.inv_eig.contiguous(), b,
+                      lam, torch.ones(m, k, device=dev))
+    return out
+
+
+def d1000_checks(inputs: dict) -> None:
+    """K2 at each D1000 shape against its plain version, within the K2 pin (twice the plain
+    version's own move when Sigma_hat moves by one ulp), and bit for bit at every column
+    block of D1000.tiles and against K3 in its own blocks at tol=None: columns are
+    independent, so neither the tile nor the kernel may change a bit."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dantzig_fused import dantzig_fused_cuda, dantzig_fused_state_cuda
+
+    for label, (a, q, inv, b, lam, rho) in inputs.items():
+        m, d, k = b.shape
+        shape = launch_shape(m, d, k, False)
+
+        def plain(sigma):
+            return ref.dantzig_fused_ref(sigma, q, inv, b, lam, iters=CHECK_ITERS, rho=rho,
+                                         alpha=1.7)
+
+        got = dantzig_fused_cuda(a, q, inv, b, lam, rho, iters=CHECK_ITERS, alpha=1.7)
+        want = plain(a)
+        up = torch.rand(d, d, generator=torch.Generator(device=a.device).manual_seed(1),
+                        device=a.device) < 0.5
+        up = torch.triu(up) | torch.triu(up, 1).mT
+        spread = float((plain(torch.nextafter(a, torch.where(up, float("inf"),
+                                                            float("-inf")))) - want).abs().max())
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        pin = max(1e-5 * max(1.0, scale), 2 * spread)
+        tiles = [w for w in D1000.tiles if w < k and w != shape["block_k"]]
+        same = {f"block_k={w}": torch.equal(
+            dantzig_fused_cuda(a, q, inv, b, lam, rho, iters=CHECK_ITERS, alpha=1.7,
+                               block_k=w), got) for w in tiles}
+        k3 = dantzig_fused_state_cuda(a, q, inv, b, lam, rho, iters=CHECK_ITERS, alpha=1.7)
+        same["K3 at tol=None"] = torch.equal(k3.beta, got)
+        print(f"[kernels] d=1000 {label} (m={m}, k={k}), {CHECK_ITERS} it.: "
+              f"{json.dumps(shape)}; K3 {json.dumps(launch_shape(m, d, k, True))}; K2 max abs "
+              f"err {err:.3e} (pin {pin:.3e}); bit-identical: {json.dumps(same)}")
+        check(shape["cluster"] == 0, f"d=1000 {label}: the model sends the shape to a cluster")
+        check(err <= pin, f"d=1000 {label}: K2 err {err} > {pin}")
+        check(all(same.values()), f"d=1000 {label}: not bit-identical: {same}")
+
+
+def d1000_times(inputs: dict) -> dict:
+    """K2 at each D1000 shape, ITERS iterations, against its bound; the CLIME slice at each
+    column block of D1000.tiles, in two turns."""
+    from repro_torch.kernels.dantzig_fused import dantzig_fused_cuda, resolve_block_k
+
+    rows = {}
+    for label, (a, q, inv, b, lam, rho) in inputs.items():
+        m, d, k = b.shape
+        tiles = D1000.tiles if k > 1 else (resolve_block_k(d, k, None),)
+        times = {w: [] for w in tiles}
+        for _ in range(2):
+            for w in tiles:
+                times[w].append(cuda_ms(lambda: dantzig_fused_cuda(
+                    a, q, inv, b, lam, rho, iters=ITERS, alpha=1.7, block_k=w), 1))
+        bound_ms, bound_by = bound(*fixed_kernel_work(m, d, k, ITERS))
+        rows[label] = {"shape": [m, d, k], "iters": ITERS, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "model_block_k": resolve_block_k(d, k, None),
+                       "ms_by_block_k": {str(w): v for w, v in times.items()},
+                       "x_bound_by_block_k": {str(w): min(v) / bound_ms
+                                              for w, v in times.items()}}
+        print(f"[times] K2 d=1000 {label}: {json.dumps(rows[label])}")
+    return rows
 
 
 def shape_checks(label, fac, b, lam, rho, iters, split, start=None) -> dict:
@@ -1832,6 +1927,10 @@ def main() -> None:
     edge_gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     for label, d, k, m, iters, split in EDGE_SHAPES:
         edge_shape_checks(label, d, k, m, iters, split, edge_gen)
+    # K2's d = 1,000 shapes on the streamed template, its model's wide tile held to
+    # narrower blocks and to K3 bit for bit
+    d1000 = d1000_inputs(edge_gen)
+    d1000_checks(d1000)
 
     # the launch shapes runs (d) and (e) add, on their own statistics, at
     # CHECK_ITERS iterations: the K2 and K3 templates with the card's
@@ -2537,6 +2636,7 @@ def main() -> None:
     k2_plain_ms = cuda_ms(lambda: ref.dantzig_fused_ref(
         stats.sigma, factor.q, factor.inv_eig, eye, lam, iters=ITERS, rho=1.0), 1)
     k2_dir_ms = cuda_ms(k2_direction, 3)
+    k2_d1000 = d1000_times(d1000)
     k2_dir_plain_ms = cuda_ms(lambda: ref.dantzig_fused_ref(
         stats.sigma, factor.q, factor.inv_eig, stats.mu_d.unsqueeze(-1), lam, iters=ITERS,
         rho=1.0), 1)
@@ -2550,7 +2650,7 @@ def main() -> None:
                       "bound_ms": bound(ITERS * M * (8 * D * D + 20 * D),
                                         4 * (2 * M * D * D + M * D + 4 * M * D + 2 * M))[0],
                       "launch": launches_info["K2 k=1"], **splits["dantzig_fused k=1"]},
-        runs_d_e=k2_new)
+        runs_d_e=k2_new, d1000=k2_d1000)
 
     # K3's bound counts the iterations and residual checks this run's data needed
     def k3_clime_plain():

@@ -285,7 +285,7 @@ class SmemConformance(NamedTuple):
     ``SMEM_BYTES``, 227 KiB): the cluster block's
     :func:`~repro_torch.kernels.dantzig_fused.cluster_smem_bytes`, or
     the streamed block's
-    :func:`~repro_torch.kernels.dantzig_fused.fused_block_smem_bytes`.
+    :func:`~repro_torch.kernels.dantzig_fused.streamed_smem_bytes`.
     On the card the kernel's own report (``cluster_info``) must equal
     the model and fit the device's opt-in limit per block.
     """
@@ -318,7 +318,7 @@ class SmemConformance(NamedTuple):
             width = df.tile_width(bk)
             cs = df.pick_cluster_size(d, width, state_io)
             used = (df.cluster_smem_bytes(d, width, cs, state_io) + df.CLUSTER_STATIC_SMEM_BYTES
-                    if cs else df.fused_block_smem_bytes(d, width, state_io))
+                    if cs else df.streamed_smem_bytes(d, width, state_io))
             template = f"cluster of {cs}" if cs else "streamed"
             if used > budget:
                 fail(f"the {template} block (d={d}, W={width}) needs {used} bytes, budget is "

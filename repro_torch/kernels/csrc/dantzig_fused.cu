@@ -93,17 +93,34 @@
 //     its own rows' state.
 //
 // THE STREAMED TEMPLATE (cluster = 0; where the slices do not fit a block
-// even at CS = 16, d >~ 550 at k = 1).  The design of the first port:
+// even at CS = 16: d >= 545 at k = 1).
 //   * grid (column blocks, machines), one block of 256 threads per
-//     (machine, column block), nothing shared across blocks;
-//   * the (d, W) state -- z, w, u1, u2, b and two product buffers -- lives
-//     in shared memory (7 d W floats), and A, A^T-major Q and Q^T stream from
-//     L2 on every product: the wrapper passes A^T and Q^T, made once per
-//     call, so that a warp reads one row of Mt with 32 consecutive addresses;
-//   * each thread accumulates an R x C micro-tile, rows clamped to d - 1
-//     (recomputed, never stored); the update is fused into the fourth
-//     product's epilogue; four __syncthreads per iteration;
-//   * K3 keeps its chunk deltas dz, dw in the two product buffers.
+//     (machine, column block), nothing shared across blocks; A, A^T-major Q
+//     and Q^T stream from L2 on every product: the wrapper passes A^T and
+//     Q^T, made once per call, so that a warp reads one row of Mt with 32
+//     consecutive addresses;
+//   * a thread owns rows t, t + 256, ... and all W columns of each, so each
+//     element of Mt is fetched from L2 once per block and product and feeds
+//     W FMAs: 4 / W bytes of L2 an FMA (1/6 at W = 24; the first port's
+//     8-column tile read 1/2).  A thread computes two of its rows at once
+//     (W <= 24) and keeps 8 loads of Mt in flight ahead of its FMAs (32 at
+//     W = 1), a ring of registers; rows past d are clamped to d - 1
+//     (recomputed, never stored);
+//   * shared memory holds only the two (d, W) product buffers and the
+//     per-column lam, 1/rho (K3: rho, a reduction scratch): 4 (2 d W + 2 W)
+//     bytes, so W = 24 fits at d = 1,000 (192 KB);
+//   * the state z, w, u1, u2 and b lives in device memory, in a scratch the
+//     wrapper allocates: five (W, d) column-major slabs per (machine, column
+//     block), entry (i, c) at c d + i, so a warp's 32 rows are one 128-byte
+//     line.  Only the thread that owns an entry touches it: w - u2 in the
+//     first product's epilogue, the update in the fourth's, ~11 accesses an
+//     entry an iteration (11 d W floats against the 4 d^2 the products
+//     stream), with evict-first loads and stores so that they do not push the
+//     matrices out of L2.  The kernel fills the slabs itself (b, the zero or
+//     warm state) and writes w (K3: z, u1, u2) out at the end;
+//   * the update is fused into the fourth product's epilogue; four
+//     __syncthreads per iteration; K3 keeps its chunk deltas dz, dw in the
+//     two product buffers.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -127,47 +144,96 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 
 // ---- the streamed template -------------------------------------------------
 
+// The product's register tiling, from timings on the card at d = 1,000
+// (PERF.md): a thread computes kRows rows of its tile at once (two, where
+// their 2 W accumulators fit beside the rest), and its loads of Mt run
+// ahead_rows rows ahead of its FMAs (32 at W = 1, whose single FMA a load
+// hides nothing, else 8).
+template <int W>
+__host__ __device__ constexpr int rows_at_once() { return W <= 24 ? 2 : 1; }
+template <int W>
+__host__ __device__ constexpr int ahead_rows() { return W == 1 ? 32 : 8; }
+
+// W floats of a product buffer's row, in 16-byte shared loads where W allows
+template <int W>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[W]) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < W; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + c);
+      v[c] = x.x, v[c + 1] = x.y, v[c + 2] = x.z, v[c + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < W; ++c) v[c] = p[c];
+  }
+}
+
 // out[i, c] = sum_kk mt[kk * d + i] * in[kk * W + c] for i < d, c < W; each
-// result goes to epi(i, c, value).  Threads: RG row groups x CG column groups.
-template <int C, int CG, class Epi>
-__device__ __forceinline__ void product(const float* __restrict__ mt,
-                                        const float* in, int d, Epi epi) {
-  constexpr int W = C * CG;
-  constexpr int RG = kThreads / CG;
-  constexpr int R = CG == 1 ? 1 : 4;
-  const int rg = threadIdx.x % RG;
-  const int c0 = (threadIdx.x / RG) * C;
-  for (int base = 0; base < d; base += RG * R) {
-    int rows[R];
-    float acc[R][C];
+// result goes to epi(i, c, value).  Thread t owns rows t, t + kThreads, ... and
+// all W columns of each, kRows rows at once, so the block loads each element
+// of Mt once a product and each load feeds W FMAs; a warp's load is one
+// 128-byte line of a row of Mt.  Rows past d load row d - 1 and are never
+// stored.
+template <int W, class Epi>
+__device__ __forceinline__ void product(const float* __restrict__ mt, const float* in, int d,
+                                        Epi epi) {
+  constexpr int kAhead = ahead_rows<W>();
+  constexpr int kRows = rows_at_once<W>();
+  for (int base = 0; base < d; base += kRows * kThreads) {
+    const float* mp[kRows];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      rows[r] = min(base + rg + r * RG, d - 1);
+    for (int r = 0; r < kRows; ++r)
+      mp[r] = mt + min(base + (int)threadIdx.x + r * kThreads, d - 1);
+    auto row = [&](int r, int kk) { return __ldg(mp[r] + (size_t)min(kk, d - 1) * d); };
+    float acc[kRows][W], ahead[kAhead][kRows];
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int c = 0; c < W; ++c) acc[r][c] = 0.f;
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) ahead[u][r] = row(r, u);
+    // the FMAs of row kk, whose loads sit in slot; the slot then loads row kk + kAhead
+    auto step = [&](int kk, float (&slot)[kRows]) {
+      float iv[W], mv[kRows];
+      load_row<W>(in + kk * W, iv);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        mv[r] = slot[r];
+        slot[r] = row(r, kk + kAhead);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int c = 0; c < W; ++c) acc[r][c] = fmaf(mv[r], iv[c], acc[r][c]);
+    };
+    int kk = 0;
+    for (; kk + kAhead <= d; kk += kAhead) {
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) step(kk + u, ahead[u]);
     }
-#pragma unroll 4
-    for (int kk = 0; kk < d; ++kk) {
-      const float* mrow = mt + (size_t)kk * d;
-      float mv[R], iv[C];
 #pragma unroll
-      for (int r = 0; r < R; ++r) mv[r] = __ldg(mrow + rows[r]);
+    for (int u = 0; u < kAhead; ++u)
+      if (kk + u < d) step(kk + u, ahead[u]);
 #pragma unroll
-      for (int c = 0; c < C; ++c) iv[c] = in[kk * W + c0 + c];
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[r][c] = fmaf(mv[r], iv[c], acc[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = base + rg + r * RG;
+    for (int r = 0; r < kRows; ++r) {
+      const int i = base + threadIdx.x + r * kThreads;
       if (i < d) {
 #pragma unroll
-        for (int c = 0; c < C; ++c) epi(i, c0 + c, acc[r][c]);
+        for (int c = 0; c < W; ++c) epi(i, c, acc[r][c]);
       }
     }
   }
+}
+
+// f(i, c) on every entry the thread owns in product: rows threadIdx.x +
+// kThreads j, every column
+template <int W, class F>
+__device__ __forceinline__ void each_entry(int d, F f) {
+  for (int i = threadIdx.x; i < d; i += kThreads)
+    for (int c = 0; c < W; ++c) f(i, c);
 }
 
 // One machine's read-only operands, offset to that machine.
@@ -178,92 +244,119 @@ struct Operands {
   const float* inv;
 };
 
-// The block's shared-memory arrays: (d, W) each, then per-column rows.
+// The block's state in device memory: five (W, d) column-major slabs of the
+// launch's scratch, entry (i, c) at c d + i, so a warp's 32 rows are one
+// 128-byte line.  Only the thread that owns an entry touches it.
+struct State {
+  float *z, *w, *u1, *u2, *b;
+};
+constexpr int kStateSlabs = 5;
+
+// The block's shared memory: the two (d, W) product buffers, row-major, and
+// per-column rows.
 struct Smem {
-  float *z, *w, *u1, *u2, *bs, *buf0, *buf1;
+  float *buf0, *buf1;
   float *lam, *irho, *rho;
 };
 
-struct Update {
-  float z, w, u1, u2;
+// The state's loads and stores are evict-first (ld/st.global.cs), so that they
+// do not push A^T, Q and Q^T out of L2.
+__device__ __forceinline__ float ld_state(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ void st_state(float* p, float v) { __stcs(p, v); }
+
+struct Entry {
+  float z, w, u1, u2, b;
 };
 
-// The over-relaxed clip / shrink / dual update of one entry, given A beta.
-__device__ __forceinline__ Update admm_update(const Smem& s, int e, int c, float ab,
-                                              float alpha, float one_minus_alpha) {
-  const float zo = s.z[e], wo = s.w[e], bb = s.bs[e], u1o = s.u1[e], u2o = s.u2[e];
-  const float beta = s.buf1[e];
+__device__ __forceinline__ Entry load_entry(const State& st, size_t e) {
+  return {ld_state(st.z + e), ld_state(st.w + e), ld_state(st.u1 + e), ld_state(st.u2 + e),
+          ld_state(st.b + e)};
+}
+
+// b is written once, in the prologue
+__device__ __forceinline__ void store_entry(const State& st, size_t e, const Entry& v) {
+  st_state(st.z + e, v.z);
+  st_state(st.w + e, v.w);
+  st_state(st.u1 + e, v.u1);
+  st_state(st.u2 + e, v.u2);
+}
+
+// The over-relaxed clip / shrink / dual update of one entry o, given A beta
+// and beta.
+__device__ __forceinline__ Entry admm_update(const Entry& o, float ab, float beta, float lm,
+                                             float irho, float alpha, float one_minus_alpha) {
   const float ab_r = __fadd_rn(__fmul_rn(alpha, ab),
-                               __fmul_rn(one_minus_alpha, __fadd_rn(zo, bb)));
-  const float beta_r = __fadd_rn(__fmul_rn(alpha, beta), __fmul_rn(one_minus_alpha, wo));
-  const float lm = s.lam[c];
-  Update u;
-  u.z = fminf(fmaxf(__fadd_rn(__fsub_rn(ab_r, bb), u1o), -lm), lm);
-  u.w = shrink(__fadd_rn(beta_r, u2o), s.irho[c]);
-  u.u1 = __fsub_rn(__fsub_rn(__fadd_rn(u1o, ab_r), u.z), bb);
-  u.u2 = __fsub_rn(__fadd_rn(u2o, beta_r), u.w);
+                               __fmul_rn(one_minus_alpha, __fadd_rn(o.z, o.b)));
+  const float beta_r = __fadd_rn(__fmul_rn(alpha, beta), __fmul_rn(one_minus_alpha, o.w));
+  Entry u;
+  u.z = fminf(fmaxf(__fadd_rn(__fsub_rn(ab_r, o.b), o.u1), -lm), lm);
+  u.w = shrink(__fadd_rn(beta_r, o.u2), irho);
+  u.u1 = __fsub_rn(__fsub_rn(__fadd_rn(o.u1, ab_r), u.z), o.b);
+  u.u2 = __fsub_rn(__fadd_rn(o.u2, beta_r), u.w);
+  u.b = o.b;
   return u;
 }
 
+__device__ __forceinline__ size_t slab_at(int d, int i, int c) { return (size_t)c * d + i; }
+
 // buf1 = beta = Q diag(inv) Q^T (A buf0 + (w - u2)), with buf0 = z + b - u1
 // on entry; buf0 is scratch afterwards.
-template <int C, int CG>
-__device__ __forceinline__ void beta_solve(const Operands& g, const Smem& s, int d) {
-  constexpr int W = C * CG;
-  product<C, CG>(g.at, s.buf0, d, [&](int i, int c, float acc) {
-    const int e = i * W + c;
-    s.buf1[e] = __fadd_rn(acc, __fsub_rn(s.w[e], s.u2[e]));
+template <int W>
+__device__ __forceinline__ void beta_solve(const Operands& g, const State& st, const Smem& s,
+                                           int d) {
+  product<W>(g.at, s.buf0, d, [&](int i, int c, float acc) {
+    const size_t e = slab_at(d, i, c);
+    s.buf1[i * W + c] = __fadd_rn(acc, __fsub_rn(ld_state(st.w + e), ld_state(st.u2 + e)));
   });
   __syncthreads();
-  product<C, CG>(g.q, s.buf1, d, [&](int i, int c, float acc) {
+  product<W>(g.q, s.buf1, d, [&](int i, int c, float acc) {
     s.buf0[i * W + c] = __fmul_rn(g.inv[i], acc);
   });
   __syncthreads();
-  product<C, CG>(g.qt, s.buf0, d, [&](int i, int c, float acc) {
-    s.buf1[i * W + c] = acc;
-  });
+  product<W>(g.qt, s.buf0, d, [&](int i, int c, float acc) { s.buf1[i * W + c] = acc; });
   __syncthreads();
 }
 
 // One ADMM iteration.  Without kDeltas the update is fused into the A beta
 // product and buf0 ends as the next iteration's z + b - u1; with kDeltas
 // (a chunk's last iteration) buf0 ends as dz and buf1 as dw.
-template <int C, int CG, bool kDeltas>
-__device__ __forceinline__ void iteration(const Operands& g, const Smem& s, int d,
-                                          float alpha, float one_minus_alpha) {
-  constexpr int W = C * CG;
-  beta_solve<C, CG>(g, s, d);
+template <int W, bool kDeltas>
+__device__ __forceinline__ void iteration(const Operands& g, const State& st, const Smem& s,
+                                          int d, float alpha, float one_minus_alpha) {
+  beta_solve<W>(g, st, s, d);
   if (!kDeltas) {
-    product<C, CG>(g.at, s.buf1, d, [&](int i, int c, float ab) {
-      const int e = i * W + c;
-      const Update u = admm_update(s, e, c, ab, alpha, one_minus_alpha);
-      s.z[e] = u.z;
-      s.w[e] = u.w;
-      s.u1[e] = u.u1;
-      s.u2[e] = u.u2;
-      s.buf0[e] = __fsub_rn(__fadd_rn(u.z, s.bs[e]), u.u1);
+    product<W>(g.at, s.buf1, d, [&](int i, int c, float ab) {
+      const size_t e = slab_at(d, i, c);
+      const Entry u = admm_update(load_entry(st, e), ab, s.buf1[i * W + c], s.lam[c],
+                                  s.irho[c], alpha, one_minus_alpha);
+      store_entry(st, e, u);
+      s.buf0[i * W + c] = __fsub_rn(__fadd_rn(u.z, u.b), u.u1);
     });
     __syncthreads();
     return;
   }
-  product<C, CG>(g.at, s.buf1, d, [&](int i, int c, float ab) { s.buf0[i * W + c] = ab; });
+  product<W>(g.at, s.buf1, d, [&](int i, int c, float ab) { s.buf0[i * W + c] = ab; });
   __syncthreads();
-  for (int e = threadIdx.x; e < d * W; e += kThreads) {
-    const float zo = s.z[e], wo = s.w[e];
-    const Update u = admm_update(s, e, e % W, s.buf0[e], alpha, one_minus_alpha);
-    s.z[e] = u.z;
-    s.w[e] = u.w;
-    s.u1[e] = u.u1;
-    s.u2[e] = u.u2;
-    s.buf0[e] = __fsub_rn(u.z, zo);
-    s.buf1[e] = __fsub_rn(u.w, wo);
-  }
+  each_entry<W>(d, [&](int i, int c) {
+    const size_t e = slab_at(d, i, c);
+    const int x = i * W + c;
+    const Entry o = load_entry(st, e);
+    const Entry u = admm_update(o, s.buf0[x], s.buf1[x], s.lam[c], s.irho[c], alpha,
+                                one_minus_alpha);
+    store_entry(st, e, u);
+    s.buf0[x] = __fsub_rn(u.z, o.z);
+    s.buf1[x] = __fsub_rn(u.w, o.w);
+  });
   __syncthreads();
 }
 
-__device__ __forceinline__ void next_input(const Smem& s, int dw) {
-  for (int e = threadIdx.x; e < dw; e += kThreads)
-    s.buf0[e] = __fsub_rn(__fadd_rn(s.z[e], s.bs[e]), s.u1[e]);
+template <int W>
+__device__ __forceinline__ void next_input(const State& st, const Smem& s, int d) {
+  each_entry<W>(d, [&](int i, int c) {
+    const size_t e = slab_at(d, i, c);
+    s.buf0[i * W + c] =
+        __fsub_rn(__fadd_rn(ld_state(st.z + e), ld_state(st.b + e)), ld_state(st.u1 + e));
+  });
   __syncthreads();
 }
 
@@ -271,26 +364,27 @@ __device__ __forceinline__ void next_input(const Smem& s, int dw) {
 // max(max |A beta - z - b|, max |beta - w|, max_c rho_c |A dz + dw|_c) over
 // the live columns, with dz in buf0 and dw in buf1 on entry.  Leaves buf0 =
 // z + b - u1 for the next chunk.
-template <int C, int CG>
-__device__ float residual(const Operands& g, const Smem& s, int d, int ncol, float* red) {
-  constexpr int W = C * CG;
+template <int W>
+__device__ float residual(const Operands& g, const State& st, const Smem& s, int d, int ncol,
+                          float* red) {
   float local = 0.f;
-  product<C, CG>(g.at, s.buf0, d, [&](int i, int c, float adz) {
+  product<W>(g.at, s.buf0, d, [&](int i, int c, float adz) {
     if (c < ncol)
       local = max_nan(local, __fmul_rn(s.rho[c], fabsf(__fadd_rn(adz, s.buf1[i * W + c]))));
   });
   __syncthreads();
-  next_input(s, d * W);
-  beta_solve<C, CG>(g, s, d);
-  product<C, CG>(g.at, s.buf1, d, [&](int i, int c, float ab) {
+  next_input<W>(st, s, d);
+  beta_solve<W>(g, st, s, d);
+  product<W>(g.at, s.buf1, d, [&](int i, int c, float ab) {
     if (c < ncol) {
-      const int e = i * W + c;
-      local = max_nan(local, fabsf(__fsub_rn(__fsub_rn(ab, s.z[e]), s.bs[e])));
-      local = max_nan(local, fabsf(__fsub_rn(s.buf1[e], s.w[e])));
+      const size_t e = slab_at(d, i, c);
+      local = max_nan(local,
+                      fabsf(__fsub_rn(__fsub_rn(ab, ld_state(st.z + e)), ld_state(st.b + e))));
+      local = max_nan(local, fabsf(__fsub_rn(s.buf1[i * W + c], ld_state(st.w + e))));
     }
   });
   __syncthreads();
-  next_input(s, d * W);
+  next_input<W>(st, s, d);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     local = max_nan(local, __shfl_xor_sync(0xffffffffu, local, off));
@@ -320,18 +414,17 @@ struct StateIO {
 
 template <bool kState>
 __host__ __device__ constexpr size_t smem_floats(int d, int width) {
-  return (size_t)7 * d * width + (kState ? 3 * width + kWarps + 1 : 2 * width);
+  return (size_t)2 * d * width + (kState ? 3 * width + kWarps + 1 : 2 * width);
 }
 
-template <int C, int CG, bool kState>
+template <int W, bool kState>
 __global__ void __launch_bounds__(kThreads)
 fused_admm_kernel(const float* __restrict__ at, const float* __restrict__ q,
                   const float* __restrict__ qt, const float* __restrict__ inv,
                   const float* __restrict__ b, const float* __restrict__ lam,
-                  const float* __restrict__ rho, float* __restrict__ out, StateIO io,
-                  int d, int k, int bk, int iters, float alpha, float one_minus_alpha,
-                  int has_tol, float tol, int check_every) {
-  constexpr int W = C * CG;
+                  const float* __restrict__ rho, float* __restrict__ out,
+                  float* __restrict__ scratch, StateIO io, int d, int k, int bk, int iters,
+                  float alpha, float one_minus_alpha, int has_tol, float tol, int check_every) {
   extern __shared__ __align__(16) float smem[];
   const size_t mach = blockIdx.y;
   const int col0 = blockIdx.x * bk;
@@ -344,43 +437,36 @@ fused_admm_kernel(const float* __restrict__ at, const float* __restrict__ q,
   lam += mach * k;
   rho += mach * k;
 
-  const int dw = d * W;
+  const size_t dw = (size_t)d * W;
+  float* slab = scratch + (mach * gridDim.x + blockIdx.x) * kStateSlabs * dw;
+  const State st{slab, slab + dw, slab + 2 * dw, slab + 3 * dw, slab + 4 * dw};
   Smem s;
-  s.z = smem;
-  s.w = s.z + dw;
-  s.u1 = s.w + dw;
-  s.u2 = s.u1 + dw;
-  s.bs = s.u2 + dw;
-  s.buf0 = s.bs + dw;
+  s.buf0 = smem;
   s.buf1 = s.buf0 + dw;
   s.lam = s.buf1 + dw;
   s.irho = s.lam + W;
   s.rho = kState ? s.irho + W : nullptr;
   float* red = kState ? s.rho + W : nullptr;
 
+  // the state slabs: b and the zero or warm state, past the live columns 0;
+  // and the first input z + b - u1
   const bool warm = kState && io.z0 != nullptr;
-  for (int e = threadIdx.x; e < dw; e += kThreads) {
-    const int i = e / W, c = e % W;
+  each_entry<W>(d, [&](int i, int c) {
     const bool live = c < ncol;
     const size_t at_g = (size_t)i * k + col0 + c;
-    const float bv = live ? b[at_g] : 0.f;
-    s.bs[e] = bv;
-    if (warm) {
-      const float zv = live ? io.z0[cols + at_g] : 0.f;
-      const float u1v = live ? io.u10[cols + at_g] : 0.f;
-      s.z[e] = zv;
-      s.w[e] = live ? io.w0[cols + at_g] : 0.f;
-      s.u1[e] = u1v;
-      s.u2[e] = live ? io.u20[cols + at_g] : 0.f;
-      s.buf0[e] = __fsub_rn(__fadd_rn(zv, bv), u1v);
-    } else {
-      s.buf0[e] = bv;  // z + b - u1 with the zero cold-start state
-      s.z[e] = 0.f;
-      s.w[e] = 0.f;
-      s.u1[e] = 0.f;
-      s.u2[e] = 0.f;
-    }
-  }
+    const bool in = warm && live;
+    Entry v;
+    v.b = live ? b[at_g] : 0.f;
+    v.z = in ? io.z0[cols + at_g] : 0.f;
+    v.w = in ? io.w0[cols + at_g] : 0.f;
+    v.u1 = in ? io.u10[cols + at_g] : 0.f;
+    v.u2 = in ? io.u20[cols + at_g] : 0.f;
+    const size_t e = slab_at(d, i, c);
+    store_entry(st, e, v);
+    st_state(st.b + e, v.b);
+    // z + b - u1 with the zero cold-start state is b
+    s.buf0[i * W + c] = warm ? __fsub_rn(__fadd_rn(v.z, v.b), v.u1) : v.b;
+  });
   for (int c = threadIdx.x; c < W; c += kThreads) {
     const bool live = c < ncol;
     const float r = live ? rho[col0 + c] : 1.f;
@@ -392,50 +478,49 @@ fused_admm_kernel(const float* __restrict__ at, const float* __restrict__ q,
 
   int it = 0;
   if (!kState || !has_tol) {
-    for (; it < iters; ++it) iteration<C, CG, false>(g, s, d, alpha, one_minus_alpha);
+    for (; it < iters; ++it) iteration<W, false>(g, st, s, d, alpha, one_minus_alpha);
   } else {
     // chunks of check_every iterations, the last one clamped so the cap is
     // exactly iters; res is block-uniform, so every thread leaves together
     float res = __int_as_float(0x7f800000);  // +inf
     while (it < iters && res > tol) {
       const int n = min(check_every, iters - it);
-      for (int j = 0; j + 1 < n; ++j) iteration<C, CG, false>(g, s, d, alpha, one_minus_alpha);
-      iteration<C, CG, true>(g, s, d, alpha, one_minus_alpha);
+      for (int j = 0; j + 1 < n; ++j) iteration<W, false>(g, st, s, d, alpha, one_minus_alpha);
+      iteration<W, true>(g, st, s, d, alpha, one_minus_alpha);
       it += n;
       if (it >= iters) break;  // capped: the check would not change the outcome
-      res = residual<C, CG>(g, s, d, ncol, red);
+      res = residual<W>(g, st, s, d, ncol, red);
     }
   }
 
-  for (int e = threadIdx.x; e < dw; e += kThreads) {
-    const int i = e / W, c = e % W;
-    if (c < ncol) {
-      const size_t at_g = (size_t)i * k + col0 + c;
-      out[at_g] = s.w[e];
-      if (kState) {
-        io.z[cols + at_g] = s.z[e];
-        io.u1[cols + at_g] = s.u1[e];
-        io.u2[cols + at_g] = s.u2[e];
-      }
+  each_entry<W>(d, [&](int i, int c) {
+    if (c >= ncol) return;
+    const size_t at_g = (size_t)i * k + col0 + c;
+    const size_t e = slab_at(d, i, c);
+    out[at_g] = ld_state(st.w + e);
+    if (kState) {
+      io.z[cols + at_g] = ld_state(st.z + e);
+      io.u1[cols + at_g] = ld_state(st.u1 + e);
+      io.u2[cols + at_g] = ld_state(st.u2 + e);
     }
-  }
+  });
   if (kState && threadIdx.x == 0) io.iters[mach * gridDim.x + blockIdx.x] = it;
 }
 
-template <int C, int CG, bool kState>
+template <int W, bool kState>
 int launch_streamed(const float* at, const float* q, const float* qt, const float* inv,
                     const float* b, const float* lam, const float* rho, float* out,
-                    StateIO io, int m, int d, int k, int bk, int iters, float alpha,
-                    float one_minus_alpha, int has_tol, float tol, int check_every,
+                    float* scratch, StateIO io, int m, int d, int k, int bk, int iters,
+                    float alpha, float one_minus_alpha, int has_tol, float tol, int check_every,
                     cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<kState>(d, C * CG);
-  auto kernel = fused_admm_kernel<C, CG, kState>;
+  const size_t smem = sizeof(float) * smem_floats<kState>(d, W);
+  auto kernel = fused_admm_kernel<W, kState>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((k + bk - 1) / bk, m);
-  kernel<<<grid, kThreads, smem, stream>>>(at, q, qt, inv, b, lam, rho, out, io, d, k, bk,
-                                           iters, alpha, one_minus_alpha, has_tol, tol,
+  kernel<<<grid, kThreads, smem, stream>>>(at, q, qt, inv, b, lam, rho, out, scratch, io, d, k,
+                                           bk, iters, alpha, one_minus_alpha, has_tol, tol,
                                            check_every);
   return (int)cudaGetLastError();
 }
@@ -443,23 +528,23 @@ int launch_streamed(const float* at, const float* q, const float* qt, const floa
 template <bool kState>
 int dispatch_streamed(const float* at, const float* q, const float* qt, const float* inv,
                       const float* b, const float* lam, const float* rho, float* out,
-                      StateIO io, int m, int d, int k, int bk, int width, int iters,
-                      float alpha, float one_minus_alpha, int has_tol, float tol,
+                      float* scratch, StateIO io, int m, int d, int k, int bk, int width,
+                      int iters, float alpha, float one_minus_alpha, int has_tol, float tol,
                       int check_every, cudaStream_t stream) {
   if (bk < 1 || bk > width) return (int)cudaErrorInvalidValue;
-#define FUSED_CASE(WIDTH, C, CG)                                                      \
-  case WIDTH:                                                                         \
-    return launch_streamed<C, CG, kState>(at, q, qt, inv, b, lam, rho, out, io, m, d, k, \
-                                          bk, iters, alpha, one_minus_alpha, has_tol,    \
-                                          tol, check_every, stream);
+#define FUSED_CASE(WIDTH)                                                                    \
+  case WIDTH:                                                                                \
+    return launch_streamed<WIDTH, kState>(at, q, qt, inv, b, lam, rho, out, scratch, io, m, d, \
+                                          k, bk, iters, alpha, one_minus_alpha, has_tol, tol, \
+                                          check_every, stream);
   switch (width) {
-    FUSED_CASE(1, 1, 1)
-    FUSED_CASE(8, 8, 1)
-    FUSED_CASE(16, 4, 4)
-    FUSED_CASE(24, 6, 4)
-    FUSED_CASE(32, 8, 4)
-    FUSED_CASE(40, 10, 4)
-    FUSED_CASE(48, 12, 4)
+    FUSED_CASE(1)
+    FUSED_CASE(8)
+    FUSED_CASE(16)
+    FUSED_CASE(24)
+    FUSED_CASE(32)
+    FUSED_CASE(40)
+    FUSED_CASE(48)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1061,8 +1146,9 @@ int cluster_info(int d, int width, int cs, int* info) {
 
 // The launchers.  width is the compile-time column tile (>= bk) and cluster
 // the template: CS >= 2 blocks per cluster, or 0 for the streamed template,
-// which alone reads at = A^T and qt = Q^T (null for a cluster launch).  The
-// Python models (repro_torch/kernels/dantzig_fused.py) pick bk, width and
+// which alone reads at = A^T and qt = Q^T and keeps its state in scratch,
+// kStateSlabs d width floats per (machine, column block) (all three null for
+// a cluster launch).  The Python models (repro_torch/kernels/dantzig_fused.py) pick bk, width and
 // cluster and size the shared memory with the same formulas as smem_floats
 // and cluster_smem_floats.  Each returns the launch's cudaError (0 on
 // success).
@@ -1070,16 +1156,17 @@ int cluster_info(int d, int width, int cs, int* info) {
 // K2: iters iterations from the zero state; writes w (m, d, k).
 extern "C" int dantzig_fused_launch(const float* a, const float* q, const float* at,
                                     const float* qt, const float* inv, const float* b,
-                                    const float* lam, const float* rho, float* out, int m,
-                                    int d, int k, int bk, int width, int cluster, int iters,
-                                    float alpha, float one_minus_alpha, cudaStream_t stream) {
+                                    const float* lam, const float* rho, float* out,
+                                    float* scratch, int m, int d, int k, int bk, int width,
+                                    int cluster, int iters, float alpha, float one_minus_alpha,
+                                    cudaStream_t stream) {
   if (bk < 1 || bk > width) return (int)cudaErrorInvalidValue;
   if (cluster > 0)
     return launch_cluster<false>(a, q, inv, b, lam, rho, out, StateIO{}, m, d, k, bk, width,
                                  cluster, iters, alpha, one_minus_alpha, 0, 0.f, 1, stream);
-  if (at == nullptr || qt == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch_streamed<false>(at, q, qt, inv, b, lam, rho, out, StateIO{}, m, d, k, bk,
-                                  width, iters, alpha, one_minus_alpha, 0, 0.f, 1, stream);
+  if (at == nullptr || qt == nullptr || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch_streamed<false>(at, q, qt, inv, b, lam, rho, out, scratch, StateIO{}, m, d, k,
+                                  bk, width, iters, alpha, one_minus_alpha, 0, 0.f, 1, stream);
 }
 
 // K3: from the warm state (z0, w0, u10, u20; all null for the zero state),
@@ -1090,7 +1177,8 @@ extern "C" int dantzig_fused_state_launch(
     const float* a, const float* q, const float* at, const float* qt, const float* inv,
     const float* b, const float* lam, const float* rho, const float* z0, const float* w0,
     const float* u10, const float* u20, float* w, float* z, float* u1, float* u2,
-    int* iters_out, int m, int d, int k, int bk, int width, int cluster, int max_iters,
+    int* iters_out, float* scratch, int m, int d, int k, int bk, int width, int cluster,
+    int max_iters,
     float alpha, float one_minus_alpha, int has_tol, float tol, int check_every,
     cudaStream_t stream) {
   if (has_tol && check_every < 1) return (int)cudaErrorInvalidValue;
@@ -1103,10 +1191,10 @@ extern "C" int dantzig_fused_state_launch(
     return launch_cluster<true>(a, q, inv, b, lam, rho, w, io, m, d, k, bk, width, cluster,
                                 max_iters, alpha, one_minus_alpha, has_tol, tol, check_every,
                                 stream);
-  if (at == nullptr || qt == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch_streamed<true>(at, q, qt, inv, b, lam, rho, w, io, m, d, k, bk, width,
-                                 max_iters, alpha, one_minus_alpha, has_tol, tol, check_every,
-                                 stream);
+  if (at == nullptr || qt == nullptr || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch_streamed<true>(at, q, qt, inv, b, lam, rho, w, scratch, io, m, d, k, bk,
+                                 width, max_iters, alpha, one_minus_alpha, has_tol, tol,
+                                 check_every, stream);
 }
 
 // What a cluster launch of this shape gets on the card: info[0] the

@@ -14,18 +14,28 @@ resident in VMEM next to the column block, so its model
 (``fused_block_vmem_bytes`` / ``pick_block_k`` in the reference) has a
 capacity cliff: when A and Q alone exceed the budget, the dispatcher
 falls back to the scan solver (d >~ 1250 on the TPU).  The port sizes
-its column blocks by the streamed template's footprint: seven (d, W)
-f32 arrays (z, w, u1, u2, b and two product buffers) plus per-column
-lam and 1/rho, against the 227 KB a block may use; K3 (``state_io``)
-adds a per-column rho row and a reduction scratch.  Both kernels take
-40-column tiles at d = 200.  ``W`` is one of the kernels'
-compile-time column tiles.  There is no fallback: ``cfg.fused=True``
-runs these kernels at every d where one column fits (d <~ 8300), and
-raises beyond.  K3 gates each block on its own, as the TPU kernel does,
-so with ``tol`` set a column's iteration count depends on its
-block-mates: the blocking is computed the same way on every device and
-for both templates (:func:`resolve_block_k`), and the CPU's plain
-version gates the same blocks.
+its column blocks by a shared-memory footprint against the 227 KB a
+block may use (:func:`fused_block_smem_bytes`).  A K2 launch at a d
+where no cluster fits even one column (d >= 545) can only take the
+streamed template, and is sized by that template's own footprint: two
+(d, W) product buffers plus per-column lam and 1/rho
+(:func:`streamed_smem_bytes`; its state lives in device memory), so
+d = 1,000 takes the widest tile that fits, 24 columns: they put ~3
+machines' A^T, Q and Q^T (~37 MB) in L2 at once where 16 would put ~2
+(~25 MB), and ran 14% faster than 16 on the card (PERF.md).  Every
+other launch keeps the first port's footprint, whose streamed block
+held its state in shared memory: seven (d, W) f32 arrays plus lam and
+1/rho, and for K3 (``state_io``) a rho row and a reduction scratch.  So
+every shape the cluster template takes keeps its blocking (40-column
+tiles at d = 200), and so does K3 everywhere.  ``W`` is one of the
+kernels' compile-time column tiles.  There is no fallback:
+``cfg.fused=True`` runs these kernels at every d where one column fits
+(K2 d <= 29,055, K3 d <~ 8300), and raises beyond.  K3 gates each block
+on its own, as the TPU kernel does, so with ``tol`` set a column's
+iteration count depends on its block-mates: the blocking is computed
+the same way on every device and for both templates
+(:func:`resolve_block_k`), and the CPU's plain version gates the same
+blocks.
 
 Cluster model (the template).  Each (machine, column block) runs as a
 thread-block cluster of CS blocks that split the d rows and keep their
@@ -65,6 +75,8 @@ CLUSTER_REDUCE_FLOATS = 256 // 32 + CLUSTER_SIZES[-1]
 CLUSTER_STATIC_SMEM_BYTES = 16
 # Threads per block, each owning one micro-tile.
 THREADS = 256
+# The streamed template's state arrays in device memory: z, w, u1, u2 and b (csrc kStateSlabs).
+STATE_SLABS = 5
 # The span around each launch on the streamed template, with the A^T and Q^T it builds.
 STREAMED_SPAN = "repro_torch.admm.streamed"
 
@@ -91,10 +103,30 @@ class FusedSolveResult(NamedTuple):
     iters: torch.Tensor  # (..., num_blocks) int32 executed iterations per block
 
 
+def _per_column_floats(width: int, state_io: bool) -> int:
+    """lam and 1/rho, and K3's rho and reduction scratch."""
+    return 3 * width + REDUCE_FLOATS if state_io else 2 * width
+
+
+def streamed_smem_bytes(d: int, width: int, state_io: bool = False) -> int:
+    """Shared memory of one block of the streamed template (csrc ``smem_floats``): the two
+    (d, W) product buffers and the per-column rows."""
+    return 4 * (2 * d * width + _per_column_floats(width, state_io))
+
+
+def streamed_only(d: int) -> bool:
+    """Whether no cluster fits a K2 launch at this d even with one column."""
+    return pick_cluster_size(d, 1) == 0
+
+
 def fused_block_smem_bytes(d: int, width: int, state_io: bool = False) -> int:
-    """Shared memory of one block with column tile ``width``: K2, or K3 with ``state_io``."""
-    rows = 3 * width + REDUCE_FLOATS if state_io else 2 * width
-    return 4 * (7 * d * width + rows)
+    """The footprint the blocking model sizes a block of column tile ``width`` by: a K2
+    launch where only the streamed template can run takes that template's own shared
+    memory; every other launch, K3 with ``state_io`` included, the first port's streamed
+    block, seven (d, W) arrays and the per-column rows."""
+    if not state_io and streamed_only(d):
+        return streamed_smem_bytes(d, width)
+    return 4 * (7 * d * width + _per_column_floats(width, state_io))
 
 
 def max_block_k(d: int, budget: int = SMEM_BYTES, state_io: bool = False) -> int:
@@ -102,7 +134,7 @@ def max_block_k(d: int, budget: int = SMEM_BYTES, state_io: bool = False) -> int
     fits = [w for w in TILE_WIDTHS if fused_block_smem_bytes(d, w, state_io) <= budget]
     if not fits:
         raise ValueError(
-            f"dantzig_fused: one column's state at d={d} needs "
+            f"dantzig_fused: one column at d={d} needs "
             f"{fused_block_smem_bytes(d, 1, state_io)} bytes of shared memory, over the "
             f"budget of {budget}")
     return fits[-1]
@@ -194,10 +226,10 @@ def tile_width(bk: int) -> int:
 
 
 _K2 = _launch.CFunction("dantzig_fused", "dantzig_fused_launch",
-                        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+                        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
                         + [ctypes.c_void_p])
 _K3 = _launch.CFunction("dantzig_fused", "dantzig_fused_state_launch",
-                        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+                        [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
                         + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _INFO = _launch.CFunction("dantzig_fused", "dantzig_fused_cluster_info",
                           [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -226,6 +258,15 @@ def _transposes(a, q, cluster):
     if cluster:
         return None, None
     return a.mT.contiguous(), q.mT.contiguous()
+
+
+def _scratch(m, d, k, bk, width, cluster, device):
+    """The streamed template's state in device memory: STATE_SLABS (W, d) slabs per (machine,
+    column block); none for a cluster launch, which keeps its state in registers."""
+    if cluster:
+        return None
+    return torch.empty(m * -(-k // bk) * STATE_SLABS * width * d, dtype=torch.float32,
+                       device=device)
 
 
 def _ptr(t):
@@ -275,8 +316,9 @@ def dantzig_fused_cuda(a, q, inv_eig, b, lam, rho, *, iters: int, alpha: float,
     def launch():
         at, qt = _transposes(a, q, cs)
         out = torch.empty((m, d, k), dtype=torch.float32, device=dev)
+        scratch = _scratch(m, d, k, bk, width, cs, dev)
         code = _K2(a.data_ptr(), q.data_ptr(), _ptr(at), _ptr(qt),
-                   *(t.data_ptr() for t in (inv_eig, b, lam, rho, out)),
+                   *(t.data_ptr() for t in (inv_eig, b, lam, rho, out)), _ptr(scratch),
                    m, d, k, bk, width, cs, iters, alpha, 1.0 - alpha, _launch.stream(dev))
         _launch.raise_on_error("dantzig_fused", code)
         return out
@@ -315,11 +357,12 @@ def dantzig_fused_state_cuda(a, q, inv_eig, b, lam, rho, state: AdmmState | None
         w, z, u1, u2 = (torch.empty((m, d, k), dtype=torch.float32, device=dev)
                         for _ in range(4))
         counts = torch.empty((m, -(-k // bk)), dtype=torch.int32, device=dev)
+        scratch = _scratch(m, d, k, bk, width, cs, dev)
         state_in = (None,) * 4 if state is None else tuple(leaf.data_ptr() for leaf in state)
         code = _K3(
             a.data_ptr(), q.data_ptr(), _ptr(at), _ptr(qt),
             *(t.data_ptr() for t in (inv_eig, b, lam, rho)), *state_in,
-            *(t.data_ptr() for t in (w, z, u1, u2, counts)),
+            *(t.data_ptr() for t in (w, z, u1, u2, counts)), _ptr(scratch),
             m, d, k, bk, width, cs, iters, alpha, 1.0 - alpha,
             int(tol is not None), 0.0 if tol is None else tol, check_every, _launch.stream(dev))
         _launch.raise_on_error("dantzig_fused_state", code)

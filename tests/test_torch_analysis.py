@@ -284,6 +284,20 @@ def test_smem_conformance_holds_on_fused_calls_and_trips_on_overruns():
     assert any(f"exceeds pick_block_k's choice {allowed}" in m for m in messages)
 
 
+@pytest.mark.parametrize("bk,conforms", [(24, True), (32, False)], ids=["model", "wider"])
+def test_smem_conformance_reads_the_streamed_footprint_at_d1000(bk, conforms):
+    # a d = 1,000 K2 call takes the streamed template: its 24-column block (two product
+    # buffers, 192,192 bytes) conforms; 32 columns exceed the model and the budget
+    assert pick_block_k(1000, 1000, SMEM_BYTES) == 24
+    counts = _counts(call_blocks={("dantzig_fused", 1000, 1000, bk): 1})
+    messages = [v.message for v in SmemConformance().check(counts)]
+    if conforms:
+        assert messages == []
+    else:
+        assert any("exceeds pick_block_k's choice 24" in m for m in messages)
+        assert any("the streamed block (d=1000, W=32) needs 256256 bytes" in m for m in messages)
+
+
 # ---------------------------------------------------------------------------
 # registry: contracts travel with the entry point; breaks are named
 # ---------------------------------------------------------------------------

@@ -285,12 +285,14 @@ def test_blocking_model_at_paper_shape():
 
 def test_fused_never_falls_back_to_scan():
     # the reference's TPU model sends d >~ 1250 to the scan; the port's
-    # streams A and Q, so fused stays fused, and raises past one column
+    # streams A and Q, so fused stays fused, and raises past one column:
+    # K2's streamed block holds two product buffers, so one column fits
+    # to d = 29,055
     cfg = DantzigConfig(fused=True)
     assert select_solver(cfg, 2000, 2000).kind == "fused_blocked"
     assert select_solver(cfg, 2000, 1) == ("fused", 1)
     with pytest.raises(ValueError, match="shared memory"):
-        select_solver(cfg, 9000, 1)
+        select_solver(cfg, 29_056, 1)
 
 
 @pytest.mark.parametrize("d,k", [(24, 1), (24, 24), (32, 32), (40, 40), (40, 1)])
@@ -461,8 +463,8 @@ def test_state_io_blocking_model_at_paper_shape():
             <= fused_model.SMEM_BYTES
             < fused_model.fused_block_smem_bytes(200, 48, state_io=True))
     assert select_solver(DantzigConfig(fused=True, tol=1e-4), 200, 200) == ("fused_blocked", 40)
-    # the extra rows make K3 the first to run out: one column at d = 8301
-    # fits K2's footprint and not K3's
+    # K3 keeps the first port's footprint, so it runs out first: one column
+    # at d = 8301 fits K2's footprint and not K3's
     assert fused_model.max_block_k(8301) == 1
     with pytest.raises(ValueError, match="shared memory"):
         fused_model.max_block_k(8301, state_io=True)

@@ -7,16 +7,19 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import test_torch_parity  # noqa: F401  (pins torch to one thread)
-from repro_torch.kernels import _launch
+from repro_torch.kernels import _launch, ops
 from repro_torch.kernels import dantzig_fused as fused
+from repro_torch.kernels.spectral import SpectralFactor
 
 
 def test_the_d1000_fit_takes_the_streamed_template_and_d200_a_cluster():
-    # d = 1,000: an 8-column tile, and no cluster size fits it, for K2 and K3 alike
-    assert fused.max_block_k(1000) == fused.max_block_k(1000, state_io=True) == 8
-    assert fused.pick_cluster_size(1000, 8) == fused.pick_cluster_size(1000, 8, True) == 0
+    # d = 1,000: no cluster size fits, for K2 and K3 alike; K2 is sized by the streamed
+    # template's own footprint (two product buffers: 24 columns), K3 keeps its 8
+    assert fused.max_block_k(1000) == 24 and fused.max_block_k(1000, state_io=True) == 8
+    assert fused.pick_cluster_size(1000, 24) == fused.pick_cluster_size(1000, 8, True) == 0
     assert fused.pick_cluster_size(1000, 1) == 0
-    assert fused.pick_block_k(1000, 1000) == 8 and fused.pick_block_k(1000, 1) == 1
+    assert fused.pick_block_k(1000, 1000) == 24 and fused.pick_block_k(1000, 1) == 1
+    assert fused.pick_block_k(1000, 1000, state_io=True) == 8
     # d = 200, the benchmarked fit's width: 40-column tiles on a cluster
     assert fused.pick_block_k(200, 200) == 40
     assert fused.pick_cluster_size(200, 40) in fused.CLUSTER_SIZES
@@ -25,15 +28,17 @@ def test_the_d1000_fit_takes_the_streamed_template_and_d200_a_cluster():
 
 @pytest.fixture
 def launches(monkeypatch):
-    """The C launchers replaced by recorders of (kernel, cluster size, A^T given), and the
-    operands allowed on the CPU."""
+    """The C launchers replaced by recorders of (kernel, cluster size, A^T given, state scratch
+    given, columns per block, tile), and the operands allowed on the CPU."""
     seen = []
 
     def stub(kernel):
         def launch(*args):
-            # both launchers take a, q, at, qt first; the cluster size is argument 14 (K2) or 22 (K3)
-            cs = args[9 + 5] if kernel == "K2" else args[17 + 5]
-            seen.append((kernel, cs, args[2] is not None))
+            # both launchers take a, q, at, qt first and the scratch last of the pointers,
+            # then m, d, k, bk, width, cluster
+            n = 10 if kernel == "K2" else 18
+            bk, width, cs = args[n + 3:n + 6]
+            seen.append((kernel, cs, args[2] is not None, args[n - 1] is not None, bk, width))
             return 0
         return launch
 
@@ -68,15 +73,17 @@ def _streamed_spans(prof) -> list:
 
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
 @pytest.mark.parametrize("d,k,streamed", [(1000, 1, True), (1000, 8, True), (1000, 20, True),
-                                          (200, 1, False), (200, 40, False)])
+                                          (1000, 1000, True), (200, 1, False), (200, 40, False)])
 def test_a_streamed_launch_is_marked_once_and_a_cluster_launch_never(launches, kernel, d, k,
                                                                      streamed):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for _ in range(3):
             _call(kernel, d, k)
     spans = _streamed_spans(prof)
-    assert [(name, cs == 0, given) for name, cs, given in launches] == [
-        (kernel, streamed, streamed)] * 3
+    bk = fused.resolve_block_k(d, k, None, state_io=kernel == "K3")
+    assert [(name, cs == 0, at, scratch) for name, cs, at, scratch, _, _ in launches] == [
+        (kernel, streamed, streamed, streamed)] * 3
+    assert {(b, w) for *_, b, w in launches} == {(bk, fused.tile_width(bk))}
     assert len(spans) == (3 if streamed else 0)
     # the span holds the transposes the streamed template reads (A^T, Q^T: two copies)
     assert all(inside.count("aten::contiguous") == 2 for inside in spans), spans
@@ -89,4 +96,45 @@ def test_with_no_profiler_a_streamed_launch_records_nothing(launches, monkeypatc
     monkeypatch.setattr(fused.obs, "record_function", refuse)
     _call("K2", 1000, 8)
     _call("K3", 1000, 8)
-    assert [cs for _, cs, _ in launches] == [0, 0]
+    assert [cs for _, cs, *_ in launches] == [0, 0]
+
+
+# (columns per block, tile, cluster size) of each (d, k) that the cells, the mesh and the smoke
+# run on the cluster template, K2 and K3 alike: the first port's blocking, which every shape the
+# cluster template takes keeps
+CLUSTER_BLOCKING = {
+    **{(d, 1): (1, 1, 2 if d < 200 else 4) for d in (120, 128, 200, 256)},
+    **{(d, 5): (5, 8, 4 if d < 200 else 8) for d in (120, 128, 200, 256)},
+    **{(d, 16): (16, 16, 8 if d < 200 else 16) for d in (120, 128, 200, 256)},
+    **{(d, k): (40, 40, 4) for d in (120, 128, 200) for k in (40, 120, 200)},
+    (256, 40): (20, 24, 8), (256, 120): (30, 32, 8), (256, 200): (29, 32, 8),
+}
+
+
+@pytest.mark.parametrize("state_io", [False, True], ids=["K2", "K3"])
+@pytest.mark.parametrize("d,k", sorted(CLUSTER_BLOCKING))
+def test_every_cluster_shape_keeps_its_blocking(d, k, state_io):
+    bk = fused.pick_block_k(d, k, state_io=state_io)
+    width = fused.tile_width(bk)
+    assert (bk, width, fused.pick_cluster_size(d, width, state_io)) == CLUSTER_BLOCKING[d, k]
+
+
+@pytest.mark.parametrize("k,state_io,bk", [(1000, False, 24), (1, False, 1), (1000, True, 8),
+                                           (1, True, 1)],
+                         ids=["K2 CLIME", "K2 direction", "K3 CLIME", "K3 direction"])
+def test_a_d1000_call_records_the_model_blocks(k, state_io, bk):
+    # the call counts record each K2/K3 call's blocks: at d = 1,000 K2's CLIME block takes
+    # the wide tile, K3 keeps its 8 columns
+    d = 1000
+    factor = SpectralFactor(torch.eye(d), torch.eye(d), torch.ones(d))
+    ops.reset_launches()
+    ops.dantzig_fused(factor, torch.zeros(d, k), 0.1, iters=0, return_info=state_io)
+    name = "dantzig_fused_state" if state_io else "dantzig_fused"
+    assert ops.CALL_BLOCKS == {(name, d, k, bk): 1}
+    assert fused.pick_block_k(d, k, state_io=state_io) == bk
+    width = fused.tile_width(bk)
+    assert fused.pick_cluster_size(d, width, state_io) == 0
+    # the streamed block the launch takes: two product buffers at K2's 24 columns
+    assert fused.streamed_smem_bytes(d, width, state_io) <= fused.SMEM_BYTES
+    if not state_io and k > 1:
+        assert fused.streamed_smem_bytes(d, 32) > fused.SMEM_BYTES
