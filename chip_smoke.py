@@ -446,34 +446,19 @@ D1000 = SimpleNamespace(d=1000, n=500, shapes=(("direction", 20, 1), ("CLIME sli
 
 
 def launch_shape(m: int, d: int, k: int, state_io: bool) -> dict:
-    """The template the cluster model picks for a launch shape and what the card reports
-    for it: cluster size (0: streamed), micro-tile, shared memory per block, registers,
-    spills and cudaOccupancyMaxActiveClusters."""
-    from repro_torch.kernels.dantzig_fused import (
-        cluster_info,
-        cluster_smem_bytes,
-        cluster_tile,
-        pick_cluster_size,
-        resolve_block_k,
-        tile_width,
-    )
+    """The launch plan of a shape and what the card reports for it: cluster size (0:
+    streamed), micro-tile, shared memory per block, registers, spills and
+    cudaOccupancyMaxActiveClusters; a cluster plan is checked against the card's report."""
+    from repro_torch.kernels.dantzig_fused import check_on_card, cluster_tile, plan_launch
 
-    bk = resolve_block_k(d, k, None, state_io=state_io)
-    width = tile_width(bk)
-    cs = pick_cluster_size(d, width, state_io)
-    out = {"block_k": bk, "width": width, "cluster": cs}
-    if cs:
-        info, tile = cluster_info(d, width, cs, state_io), cluster_tile(d, width, cs)
-        check(info.smem_bytes == cluster_smem_bytes(d, width, cs, state_io),
-              f"d={d} W={width} cluster {cs}: the card's shared memory per block "
-              f"{info.smem_bytes} is not the model's {cluster_smem_bytes(d, width, cs, state_io)}")
-        check(info.tile == {"row": 1, "block": 2}[tile],
-              f"d={d} W={width} cluster {cs}: the card's micro-tile {info.tile} is not the "
-              f"model's {tile}")
-        check(info.max_active_clusters > 0,
-              f"d={d} W={width} cluster {cs}: no cluster fits the card")
-        out.update(tile=tile, smem_bytes=info.smem_bytes, registers=info.registers,
-                   spilled_bytes=info.local_bytes,
+    plan = plan_launch(d, k, state_io=state_io)
+    out = {"block_k": plan.block_k, "width": plan.width, "cluster": plan.cluster}
+    if not plan.streamed:
+        info, mismatches = check_on_card(d, plan, state_io)
+        for msg in mismatches:
+            check(False, msg)
+        out.update(tile=cluster_tile(d, plan.width, plan.cluster), smem_bytes=info.smem_bytes,
+                   registers=info.registers, spilled_bytes=info.local_bytes,
                    max_active_clusters=info.max_active_clusters)
     return out
 
@@ -551,12 +536,13 @@ def d1000_checks(inputs: dict) -> None:
 def d1000_times(inputs: dict) -> dict:
     """K2 at each D1000 shape, ITERS iterations, against its bound; the CLIME slice at each
     column block of D1000.tiles, in two turns."""
-    from repro_torch.kernels.dantzig_fused import dantzig_fused_cuda, resolve_block_k
+    from repro_torch.kernels.dantzig_fused import dantzig_fused_cuda, plan_launch
 
     rows = {}
     for label, (a, q, inv, b, lam, rho) in inputs.items():
         m, d, k = b.shape
-        tiles = D1000.tiles if k > 1 else (resolve_block_k(d, k, None),)
+        model_bk = plan_launch(d, k).block_k
+        tiles = D1000.tiles if k > 1 else (model_bk,)
         times = {w: [] for w in tiles}
         for _ in range(2):
             for w in tiles:
@@ -564,7 +550,7 @@ def d1000_times(inputs: dict) -> dict:
                     a, q, inv, b, lam, rho, iters=ITERS, alpha=1.7, block_k=w), 1))
         bound_ms, bound_by = bound(*fixed_kernel_work(m, d, k, ITERS))
         rows[label] = {"shape": [m, d, k], "iters": ITERS, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "model_block_k": resolve_block_k(d, k, None),
+                       "bound_by": bound_by, "model_block_k": model_bk,
                        "ms_by_block_k": {str(w): v for w, v in times.items()},
                        "x_bound_by_block_k": {str(w): min(v) / bound_ms
                                               for w, v in times.items()}}
@@ -918,7 +904,7 @@ def serving_inputs(dev) -> SimpleNamespace:
     from repro_torch.core import streaming as st
     from repro_torch.core.pipeline import mc_suff_stats, suff_stats
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dantzig_fused import AdmmState, resolve_block_k
+    from repro_torch.kernels.dantzig_fused import AdmmState, plan_launch
     from repro_torch.kernels.spectral import spectral_factor
     from repro_torch.stats import synthetic
 
@@ -948,7 +934,7 @@ def serving_inputs(dev) -> SimpleNamespace:
         fac0 = spectral_factor(before.sigma[None])
         _, start, _ = ref.dantzig_fused_state_ref(
             fac0.sigma, fac0.q, fac0.inv_eig, b_before, lam_cols, iters=600, rho=1.0,
-            alpha=1.7, block_k=resolve_block_k(d, k, None, state_io=True))
+            alpha=1.7, block_k=plan_launch(d, k, state_io=True).block_k)
         k3[label] = SimpleNamespace(fac=spectral_factor(after.sigma[None]), b=b, lam=lam_cols,
                                     start=AdmmState(*(leaf.contiguous() for leaf in start)),
                                     iters=SERVING_K3_ITERS[label])
@@ -1598,8 +1584,7 @@ def main() -> None:
         cluster_fits,
         dantzig_fused_cuda,
         dantzig_fused_state_cuda,
-        pick_block_k,
-        resolve_block_k,
+        plan_launch,
     )
     from repro_torch.kernels.gram import gram_cuda
     from repro_torch.kernels.soft_threshold import _SHRINK, soft_threshold_cuda
@@ -1810,7 +1795,7 @@ def main() -> None:
         check(err <= pins[label], f"K2 {label}: err {err} > max(1e-5 * {scale}, 2 * {spread})")
         errs["dantzig_fused"] = max(errs.get("dantzig_fused", 0.0), err)
     full = k2(eye)
-    bk = pick_block_k(D, D)
+    bk = plan_launch(D, D).block_k
     same = {
         f"block_k=24 (tail of {D % 24})": torch.equal(k2(eye, block_k=24), full),
         f"one block of {bk}": torch.equal(k2(eye[..., :bk]), full[..., :bk]),
@@ -1840,7 +1825,7 @@ def main() -> None:
                                         iters=iters, alpha=1.7, tol=tol, check_every=CHECK_EVERY)
 
     def k3_plain(b, lam_cols, state=None, iters=CHECK_ITERS, tol=None, trace=None):
-        bk = resolve_block_k(D, b.shape[-1], None, state_io=True)
+        bk = plan_launch(D, b.shape[-1], state_io=True).block_k
         return ref.dantzig_fused_state_ref(stats.sigma, factor.q, factor.inv_eig, b, lam_cols,
                                            iters=iters, rho=1.0, alpha=1.7, block_k=bk,
                                            tol=tol, check_every=CHECK_EVERY, state=state,
@@ -1873,7 +1858,7 @@ def main() -> None:
             trace = []
             want_w, _, want_iters = k3_plain(b, lam_cols, state=state, tol=tol, trace=trace)
             diff = got.iters - want_iters
-            bk = resolve_block_k(D, k, None, state_io=True)
+            bk = plan_launch(D, k, state_io=True).block_k
             for mach, blk in diff.nonzero().tolist():
                 n_k, n_p = int(got.iters[mach, blk]), int(want_iters[mach, blk])
                 res = float(trace[min(n_k, n_p) // CHECK_EVERY - 1][mach, blk])
@@ -2656,7 +2641,7 @@ def main() -> None:
     def k3_clime_plain():
         return ref.dantzig_fused_state_ref(stats.sigma, factor.q, factor.inv_eig, eye, lam,
                                            iters=ITERS, rho=1.0, alpha=1.7,
-                                           block_k=resolve_block_k(D, D, None, state_io=True),
+                                           block_k=plan_launch(D, D, state_io=True).block_k,
                                            tol=PATH_TOL, check_every=CHECK_EVERY)
 
     k3_counts = k3_clime().iters
@@ -2664,7 +2649,7 @@ def main() -> None:
     k3_plain_ms = cuda_ms(k3_clime_plain, 1)
     fold_counts = k3_fold().iters
     fold_ms = cuda_ms(k3_fold, 3)
-    flops, nbytes = state_kernel_work(k3_counts, D, resolve_block_k(D, D, None, state_io=True),
+    flops, nbytes = state_kernel_work(k3_counts, D, plan_launch(D, D, state_io=True).block_k,
                                       ITERS)
     fold_bound, _ = bound(*state_kernel_work(fold_counts, L_GRID, L_GRID, ITERS))
     row("dantzig_fused_state", "cuda", "repro_torch/kernels/csrc/dantzig_fused.cu",

@@ -276,18 +276,17 @@ class AxisPayloadBits(NamedTuple):
 
 
 class SmemConformance(NamedTuple):
-    """Cross-check the fused ADMM calls against the Hopper shared-memory model.
+    """Cross-check the fused ADMM calls against the Hopper launch plan.
 
     For every K2/K3 call (``ops.CALL_BLOCKS``: d, k and the columns
     per block it used) ``block_k`` must not exceed what
-    :func:`~repro_torch.kernels.dantzig_fused.pick_block_k` allows, and
-    the template the cluster model picks must fit ``budget`` (None:
-    ``SMEM_BYTES``, 227 KiB): the cluster block's
-    :func:`~repro_torch.kernels.dantzig_fused.cluster_smem_bytes`, or
-    the streamed block's
-    :func:`~repro_torch.kernels.dantzig_fused.streamed_smem_bytes`.
-    On the card the kernel's own report (``cluster_info``) must equal
-    the model and fit the device's opt-in limit per block.
+    :func:`~repro_torch.kernels.dantzig_fused.plan_launch` allows within
+    ``budget`` (None: ``SMEM_BYTES``, 227 KiB), and the block of the
+    call's own columns, on the template the plan picks, must fit
+    ``budget`` (``LaunchPlan.smem_bytes``, a cluster block's static
+    shared memory added).  On the card the kernel's own report must
+    match the plan (:func:`~repro_torch.kernels.dantzig_fused.check_on_card`)
+    and fit the device's opt-in limit per block.
     """
 
     budget: Optional[IntOrParam] = None
@@ -312,25 +311,21 @@ class SmemConformance(NamedTuple):
             def fail(msg):
                 violations.append(Violation(self.describe(), msg, site))
 
-            allowed = df.pick_block_k(d, k, budget, state_io)
+            allowed = df.plan_launch(d, k, state_io=state_io, budget=budget).block_k
             if bk > allowed:
-                fail(f"block_k={bk} exceeds pick_block_k's choice {allowed} for (d={d}, k={k})")
-            width = df.tile_width(bk)
-            cs = df.pick_cluster_size(d, width, state_io)
-            used = (df.cluster_smem_bytes(d, width, cs, state_io) + df.CLUSTER_STATIC_SMEM_BYTES
-                    if cs else df.streamed_smem_bytes(d, width, state_io))
-            template = f"cluster of {cs}" if cs else "streamed"
+                fail(f"block_k={bk} exceeds plan_launch's choice {allowed} for (d={d}, k={k})")
+            # one block of the call's own columns, with no budget to cap them
+            plan = df.plan_launch(d, bk, bk, state_io, budget=float("inf"))
+            used = plan.smem_bytes + (0 if plan.streamed else df.CLUSTER_STATIC_SMEM_BYTES)
+            template = "streamed" if plan.streamed else f"cluster of {plan.cluster}"
             if used > budget:
-                fail(f"the {template} block (d={d}, W={width}) needs {used} bytes, budget is "
-                     f"{budget}")
+                fail(f"the {template} block (d={d}, W={plan.width}) needs {used} bytes, budget "
+                     f"is {budget}")
             if optin is None:
                 continue
-            if cs:
-                info = df.cluster_info(d, width, cs, state_io)
-                if info.smem_bytes != df.cluster_smem_bytes(d, width, cs, state_io):
-                    fail(f"the card reports {info.smem_bytes} bytes a cluster block, the model "
-                         f"{df.cluster_smem_bytes(d, width, cs, state_io)}")
-                used = info.smem_bytes + df.CLUSTER_STATIC_SMEM_BYTES
+            if not plan.streamed:
+                for msg in df.check_on_card(d, plan, state_io)[1]:
+                    fail(msg)
             if used > optin:
                 fail(f"the {template} block needs {used} bytes, over the card's opt-in limit "
                      f"of {optin}")

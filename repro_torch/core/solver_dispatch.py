@@ -5,10 +5,12 @@
     selected when ``cfg.fused`` is False (the only path with adaptive rho).
 ``fused`` / ``fused_blocked``
     The fused kernels with all k columns of a machine in one block, or
-    tiled into column blocks by the Hopper blocking model
-    (:func:`repro_torch.kernels.dantzig_fused.pick_block_k`, or the
-    ``cfg.block_k`` override): K2 for the fixed-iteration cold solve,
-    K3 (``state_io``) for the tol-gated and warm-started modes.
+    tiled into column blocks: K2 for the fixed-iteration cold solve, K3
+    (``state_io``) for the tol-gated and warm-started modes.  The columns
+    per block are the launch plan's
+    (:func:`repro_torch.kernels.dantzig_fused.plan_launch`, with the
+    ``cfg.block_k`` override), the same plan the wrapper and the
+    launchers take, so the blocks chosen here are the blocks that run.
 
 ``cfg.tol`` switches every path from the fixed-iteration schedule to
 the residual-gated early exit, and every entry point accepts a warm
@@ -19,8 +21,8 @@ resumable state, executed iterations per column).
 Unlike the TPU, there is no capacity fallback from fused to scan: where
 A's and Q's rows do not fit a thread-block cluster's shared memory, the
 kernels' streamed template reads them from L2, so ``cfg.fused=True``
-means the kernel at every d where one column's state fits in shared
-memory, and an error beyond.
+means the kernel at every d where the plan fits one column, and an
+error beyond.
 Fused is fixed rho with no adaptation, so a silent switch to the scan
 would be different math.
 
@@ -49,12 +51,7 @@ from repro_torch.analysis.contracts import (
 from repro_torch.analysis.registry import trace_contract
 from repro_torch.core import dantzig as _dantzig
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.dantzig_fused import (
-    SMEM_BYTES,
-    AdmmState,
-    max_block_k,
-    pick_block_k,
-)
+from repro_torch.kernels.dantzig_fused import SMEM_BYTES, AdmmState, plan_launch
 from repro_torch.kernels.ref import per_column
 from repro_torch.kernels.spectral import sigma_of
 
@@ -80,9 +77,7 @@ def select_solver(cfg: "_dantzig.DantzigConfig", d: int, k: int,
     if state_io is None:
         state_io = cfg.tol is not None
     budget = SMEM_BYTES if cfg.vmem_budget is None else min(cfg.vmem_budget, SMEM_BYTES)
-    bk = pick_block_k(d, k, budget, state_io)
-    if cfg.block_k is not None:
-        bk = max(1, min(cfg.block_k, k, max_block_k(d, budget, state_io)))
+    bk = plan_launch(d, k, cfg.block_k, state_io, budget).block_k
     return SolverChoice("fused" if bk >= k else "fused_blocked", bk)
 
 

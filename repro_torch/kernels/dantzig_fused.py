@@ -5,46 +5,42 @@ from a warm :class:`AdmmState`, hands the final state back, and with a
 ``tol`` stops each column block once its max scaled residual is at most
 ``tol``.  The CUDA C++ source and its design notes are in
 ``csrc/dantzig_fused.cu``: both kernels are instantiations of one
-template, which comes in two forms, the cluster template and the
-streamed one.  This module holds the two models that shape a launch
-and the launchers.
+template, which comes in two forms.  The cluster template runs each
+(machine, column block) as a thread-block cluster of 2-16 blocks that
+split the d rows and keep their row slices of A, Q^T and Q resident in
+shared memory (:func:`cluster_smem_bytes`).  The streamed template runs
+it as one block that reads A^T, Q and Q^T from L2 and keeps its state in
+a device scratch, with only two product buffers in shared memory
+(:func:`streamed_smem_bytes`).
 
-Blocking model (the column blocks).  The TPU kernel keeps A and Q
-resident in VMEM next to the column block, so its model
-(``fused_block_vmem_bytes`` / ``pick_block_k`` in the reference) has a
-capacity cliff: when A and Q alone exceed the budget, the dispatcher
-falls back to the scan solver (d >~ 1250 on the TPU).  The port sizes
-its column blocks by a shared-memory footprint against the 227 KB a
-block may use (:func:`fused_block_smem_bytes`).  A K2 launch at a d
-where no cluster fits even one column (d >= 545) can only take the
-streamed template, and is sized by that template's own footprint: two
-(d, W) product buffers plus per-column lam and 1/rho
-(:func:`streamed_smem_bytes`; its state lives in device memory), so
-d = 1,000 takes the widest tile that fits, 24 columns: they put ~3
-machines' A^T, Q and Q^T (~37 MB) in L2 at once where 16 would put ~2
-(~25 MB), and ran 14% faster than 16 on the card (PERF.md).  Every
-other launch keeps the first port's footprint, whose streamed block
-held its state in shared memory: seven (d, W) f32 arrays plus lam and
-1/rho, and for K3 (``state_io``) a rho row and a reduction scratch.  So
-every shape the cluster template takes keeps its blocking (40-column
-tiles at d = 200), and so does K3 everywhere.  ``W`` is one of the
-kernels' compile-time column tiles.  There is no fallback:
-``cfg.fused=True`` runs these kernels at every d where one column fits
-(K2 d <= 29,055, K3 d <~ 8300), and raises beyond.  K3 gates each block
-on its own, as the TPU kernel does, so with ``tol`` set a column's
-iteration count depends on its block-mates: the blocking is computed
-the same way on every device and for both templates
-(:func:`resolve_block_k`), and the CPU's plain version gates the same
-blocks.
+:func:`plan_launch` is the one place a launch is decided: the columns
+per block, the compile-time column tile that holds them, the template
+and the shared memory a block takes.  The launchers, ``ops``, the solver
+dispatch, the shared-memory contract and the smoke all read its
+:class:`LaunchPlan`.  Its rules:
 
-Cluster model (the template).  Each (machine, column block) runs as a
-thread-block cluster of CS blocks that split the d rows and keep their
-row slices of A, Q^T and Q resident in shared memory
-(:func:`cluster_smem_bytes`), or, where no cluster size fits, as one
-block that streams A and Q from L2 (the streamed template, CS = 0).
-:func:`pick_cluster_size` makes that choice from the shape alone; a
-launch never switches templates on an error.  A launch on the streamed
-template, with the A^T and Q^T it builds, runs inside the span
+- Blocking.  A K2 launch at a d where no cluster fits even one column
+  (d >= 545) can only take the streamed template, and is sized by that
+  template's footprint, so d = 1,000 takes 24 columns: the widest tile
+  that fits, and 14% faster than 16 on the card (PERF.md).  Every other
+  launch is sized by :func:`blocking_smem_bytes`, 28·d·W bytes plus the
+  per-column rows.  That rule is kept on purpose: K3 gates each block on
+  its own, so with ``tol`` its blocks are part of its answer, and the
+  cluster shapes were tuned at the widths it gives (40-column tiles at
+  d = 200).  The batch runs as one block when it fits the widest tile,
+  else as equal blocks; a ``block_k`` override is capped to that tile.
+  The blocking is the same on every device and template, and the CPU's
+  plain version gates the same blocks.
+- Template.  The smallest cluster size that fits with the 1 x 1
+  micro-tile, else the smallest that fits with the 2 x 4 one, else the
+  streamed template (:func:`pick_cluster_size`); ``cluster=`` forces one
+  (0: streamed), and every choice is bit-identical.  A launch never
+  switches templates on an error.
+
+There is no fallback to the scan solver, as the TPU kernel's VMEM model
+has: ``cfg.fused=True`` runs these kernels at every d where one column
+fits (K2 d <= 29,055, K3 d <~ 8300), and raises beyond.  A launch on the
+streamed template, with the A^T and Q^T it builds, runs inside the span
 ``repro_torch.admm.streamed`` (:data:`STREAMED_SPAN`), so a profiled
 trace tells the two templates apart and counts the streamed launches.
 """
@@ -114,46 +110,27 @@ def streamed_smem_bytes(d: int, width: int, state_io: bool = False) -> int:
     return 4 * (2 * d * width + _per_column_floats(width, state_io))
 
 
-def streamed_only(d: int) -> bool:
-    """Whether no cluster fits a K2 launch at this d even with one column."""
-    return pick_cluster_size(d, 1) == 0
-
-
-def fused_block_smem_bytes(d: int, width: int, state_io: bool = False) -> int:
-    """The footprint the blocking model sizes a block of column tile ``width`` by: a K2
-    launch where only the streamed template can run takes that template's own shared
-    memory; every other launch, K3 with ``state_io`` included, the first port's streamed
-    block, seven (d, W) arrays and the per-column rows."""
-    if not state_io and streamed_only(d):
-        return streamed_smem_bytes(d, width)
+def blocking_smem_bytes(d: int, width: int, state_io: bool = False) -> int:
+    """The footprint the blocking rule sizes every launch by but a streamed-only K2: seven
+    (d, W) f32 arrays and the per-column rows."""
     return 4 * (7 * d * width + _per_column_floats(width, state_io))
 
 
-def max_block_k(d: int, budget: int = SMEM_BYTES, state_io: bool = False) -> int:
-    """The widest column tile that fits ``budget`` at this d; raises when none does."""
-    fits = [w for w in TILE_WIDTHS if fused_block_smem_bytes(d, w, state_io) <= budget]
-    if not fits:
-        raise ValueError(
-            f"dantzig_fused: one column at d={d} needs "
-            f"{fused_block_smem_bytes(d, 1, state_io)} bytes of shared memory, over the "
-            f"budget of {budget}")
-    return fits[-1]
-
-
-def pick_block_k(d: int, k: int, budget: int = SMEM_BYTES, state_io: bool = False) -> int:
-    """Columns per block: the whole batch when it fits, else equal blocks of at most the widest tile."""
-    widest = max_block_k(d, budget, state_io)
+def pick_block_k(k: int, widest: int) -> int:
+    """Columns per block: the whole batch when it fits the widest tile, else equal blocks of at
+    most that tile."""
     if k <= widest:
         return k
     blocks = -(-k // widest)
     return -(-k // blocks)
 
 
-def resolve_block_k(d: int, k: int, block_k: int | None, state_io: bool = False) -> int:
-    """The columns per block a launch uses: the model's choice, or ``block_k`` capped to fit."""
-    if block_k is None:
-        return pick_block_k(d, k, state_io=state_io)
-    return max(1, min(block_k, k, max_block_k(d, state_io=state_io)))
+def tile_width(bk: int) -> int:
+    """The narrowest compile-time tile that holds ``bk`` columns."""
+    for w in TILE_WIDTHS:
+        if w >= bk:
+            return w
+    raise ValueError(f"block of {bk} columns is wider than the widest tile {TILE_WIDTHS[-1]}")
 
 
 def _round4(n: int) -> int:
@@ -208,21 +185,40 @@ def pick_cluster_size(d: int, width: int, state_io: bool = False) -> int:
     return (rows or fits or [0])[0]
 
 
-def resolve_cluster(d: int, width: int, cluster: int | None, state_io: bool = False) -> int:
-    """The cluster size a launch uses: the model's, or ``cluster`` (0: streamed)."""
-    if cluster is None:
-        return pick_cluster_size(d, width, state_io)
+class LaunchPlan(NamedTuple):
+    """How one K2/K3 launch runs: the C launchers receive its first three fields."""
+
+    block_k: int  # columns per block
+    width: int  # the compile-time column tile that holds them
+    cluster: int  # blocks a cluster; 0 the streamed template
+    smem_bytes: int  # dynamic shared memory one block takes
+
+    @property
+    def streamed(self) -> bool:
+        return self.cluster == 0
+
+
+def plan_launch(d: int, k: int, block_k: int | None = None, state_io: bool = False,
+                budget: float = SMEM_BYTES, cluster: int | None = None) -> LaunchPlan:
+    """The launch of a (d, k) K2 (K3 with ``state_io``) batch, by the rules of the module
+    docstring: ``block_k`` None sizes the blocks against ``budget``, else it is capped to the
+    widest tile that fits; ``cluster`` None picks the template, else forces it (0: streamed).
+    Raises where not even one column fits ``budget``."""
     if cluster and cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster must be 0 or one of {CLUSTER_SIZES}, got {cluster}")
-    return cluster
-
-
-def tile_width(bk: int) -> int:
-    """The narrowest compile-time tile that holds ``bk`` columns."""
-    for w in TILE_WIDTHS:
-        if w >= bk:
-            return w
-    raise ValueError(f"block of {bk} columns is wider than the widest tile {TILE_WIDTHS[-1]}")
+    footprint = (streamed_smem_bytes if not state_io and pick_cluster_size(d, 1) == 0
+                 else blocking_smem_bytes)
+    fits = [w for w in TILE_WIDTHS if footprint(d, w, state_io) <= budget]
+    if not fits:
+        raise ValueError(
+            f"dantzig_fused: one column at d={d} needs {footprint(d, 1, state_io)} bytes of "
+            f"shared memory, over the budget of {budget}")
+    bk = pick_block_k(k, fits[-1]) if block_k is None else max(1, min(block_k, k, fits[-1]))
+    width = tile_width(bk)
+    cs = pick_cluster_size(d, width, state_io) if cluster is None else cluster
+    smem = (cluster_smem_bytes(d, width, cs, state_io) if cs
+            else streamed_smem_bytes(d, width, state_io))
+    return LaunchPlan(bk, width, cs, smem)
 
 
 _K2 = _launch.CFunction("dantzig_fused", "dantzig_fused_launch",
@@ -253,32 +249,27 @@ def cluster_info(d: int, width: int, cluster: int, state_io: bool = False) -> Cl
     return ClusterInfo(*info)
 
 
-def _transposes(a, q, cluster):
-    """A^T and Q^T for the streamed template; the cluster template transposes on the card."""
-    if cluster:
-        return None, None
-    return a.mT.contiguous(), q.mT.contiguous()
-
-
-def _scratch(m, d, k, bk, width, cluster, device):
-    """The streamed template's state in device memory: STATE_SLABS (W, d) slabs per (machine,
-    column block); none for a cluster launch, which keeps its state in registers."""
-    if cluster:
-        return None
-    return torch.empty(m * -(-k // bk) * STATE_SLABS * width * d, dtype=torch.float32,
-                       device=device)
+def check_on_card(d: int, plan: LaunchPlan,
+                  state_io: bool = False) -> tuple[ClusterInfo, list[str]]:
+    """``(info, mismatches)``: what the card reports for a cluster plan (:func:`cluster_info`),
+    and a message for each way it departs from the plan: shared memory per block, micro-tile,
+    and no cluster resident."""
+    info = cluster_info(d, plan.width, plan.cluster, state_io)
+    tile = cluster_tile(d, plan.width, plan.cluster)
+    at = f"d={d} W={plan.width} cluster {plan.cluster}"
+    mismatches = [msg for ok, msg in (
+        (info.smem_bytes == plan.smem_bytes,
+         f"{at}: the card reports {info.smem_bytes} bytes of shared memory a block, the plan "
+         f"{plan.smem_bytes}"),
+        (info.tile == {"row": 1, "block": 2}.get(tile),
+         f"{at}: the card's micro-tile {info.tile} is not the plan's {tile}"),
+        (info.max_active_clusters > 0, f"{at}: no cluster fits the card"),
+    ) if not ok]
+    return info, mismatches
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
-
-
-def _streamed(launch):
-    """``launch()`` inside :data:`STREAMED_SPAN`: a launch on the streamed template shows in a
-    profiled trace, and the cluster template's path does not even enter a null context.  The
-    launch allocates and launches in the order it did before the span existed."""
-    with obs.span(STREAMED_SPAN):
-        return launch()
 
 
 def _check_operands(a, q, inv_eig, b, lam, rho):
@@ -296,34 +287,63 @@ def _check_operands(a, q, inv_eig, b, lam, rho):
     return m, d, k, dev
 
 
+def _launch_admm(kernel: str, operands: tuple, state: AdmmState | None, *, iters: int,
+                 alpha: float, block_k: int | None, cluster: int | None, state_io: bool,
+                 outputs, call) -> tuple:
+    """What both launchers share: check the operands and ``state``, take the plan, and on the
+    streamed template build A^T, Q^T and the state scratch (STATE_SLABS (W, d) slabs a machine
+    and column block), all inside :data:`STREAMED_SPAN`; a cluster launch enters no context.
+
+    ``outputs(m, d, k, plan, device)`` allocates the kernel's outputs in its C call's order;
+    ``call(head, outs, tail, stream)`` makes that call: ``head`` the pointers of a, q, A^T,
+    Q^T, inv_eig, b, lam and rho, ``outs`` the outputs', ``tail`` the scratch's, m, d, k, the
+    plan's three integers, iters, alpha and 1 - alpha.  Returns the outputs.
+    """
+    a, q, inv_eig, b, lam, rho = operands
+    m, d, k, dev = _check_operands(*operands)
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    for name, leaf in zip(AdmmState._fields, state or ()):
+        _launch.check_operand(f"state.{name}", leaf, (m, d, k), dev)
+    plan = plan_launch(d, k, block_k, state_io, cluster=cluster)
+
+    def launch():
+        at, qt = (a.mT.contiguous(), q.mT.contiguous()) if plan.streamed else (None, None)
+        outs = outputs(m, d, k, plan, dev)
+        scratch = (torch.empty(m * -(-k // plan.block_k) * STATE_SLABS * plan.width * d,
+                               dtype=torch.float32, device=dev) if plan.streamed else None)
+        head = (a.data_ptr(), q.data_ptr(), _ptr(at), _ptr(qt),
+                *(t.data_ptr() for t in (inv_eig, b, lam, rho)))
+        tail = (_ptr(scratch), m, d, k, plan.block_k, plan.width, plan.cluster, iters, alpha,
+                1.0 - alpha)
+        code = call(head, [t.data_ptr() for t in outs], tail, _launch.stream(dev))
+        _launch.raise_on_error(kernel, code)
+        return outs
+
+    if not plan.streamed:
+        return launch()
+    with obs.span(STREAMED_SPAN):
+        return launch()
+
+
+def _empty(*shape, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
 def dantzig_fused_cuda(a, q, inv_eig, b, lam, rho, *, iters: int, alpha: float,
                        block_k: int | None = None, cluster: int | None = None) -> torch.Tensor:
     """Launch K2 once for every machine and column block.
 
     a, q: (m, d, d); inv_eig: (m, d); b: (m, d, k); lam, rho: (m, k);
-    all f32 on one card.  ``block_k`` None sizes the blocks with
-    :func:`pick_block_k`; ``cluster`` None picks the template with
-    :func:`pick_cluster_size`, else it is the cluster size (0: the
-    streamed template).  Returns w: (m, d, k).
+    all f32 on one card.  ``block_k`` and ``cluster`` as
+    :func:`plan_launch`.  Returns w: (m, d, k).
     """
-    m, d, k, dev = _check_operands(a, q, inv_eig, b, lam, rho)
-    if iters < 0:
-        raise ValueError(f"iters must be >= 0, got {iters}")
-    bk = resolve_block_k(d, k, block_k)
-    width = tile_width(bk)
-    cs = resolve_cluster(d, width, cluster)
-
-    def launch():
-        at, qt = _transposes(a, q, cs)
-        out = torch.empty((m, d, k), dtype=torch.float32, device=dev)
-        scratch = _scratch(m, d, k, bk, width, cs, dev)
-        code = _K2(a.data_ptr(), q.data_ptr(), _ptr(at), _ptr(qt),
-                   *(t.data_ptr() for t in (inv_eig, b, lam, rho, out)), _ptr(scratch),
-                   m, d, k, bk, width, cs, iters, alpha, 1.0 - alpha, _launch.stream(dev))
-        _launch.raise_on_error("dantzig_fused", code)
-        return out
-
-    return launch() if cs else _streamed(launch)
+    (w,) = _launch_admm(
+        "dantzig_fused", (a, q, inv_eig, b, lam, rho), None, iters=iters, alpha=alpha,
+        block_k=block_k, cluster=cluster, state_io=False,
+        outputs=lambda m, d, k, plan, dev: (_empty(m, d, k, device=dev),),
+        call=lambda head, outs, tail, stream: _K2(*head, *outs, *tail, stream))
+    return w
 
 
 def dantzig_fused_state_cuda(a, q, inv_eig, b, lam, rho, state: AdmmState | None = None, *,
@@ -336,36 +356,24 @@ def dantzig_fused_state_cuda(a, q, inv_eig, b, lam, rho, state: AdmmState | None
     zero, else its leaves are (m, d, k) f32 on the card.  ``tol`` None
     runs exactly ``iters`` iterations; otherwise ``check_every``-iteration
     chunks until the block's max scaled residual is at most ``tol``,
-    capped at ``iters``.  ``cluster`` as :func:`dantzig_fused_cuda`.
+    capped at ``iters``.  ``block_k`` and ``cluster`` as :func:`plan_launch`.
     Returns w (m, d, k), the final state and the executed iterations
     (m, num_blocks) int32.
     """
-    m, d, k, dev = _check_operands(a, q, inv_eig, b, lam, rho)
-    if iters < 0:
-        raise ValueError(f"iters must be >= 0, got {iters}")
     if tol is not None and check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
-    if state is not None:
-        for name, leaf in zip(AdmmState._fields, state):
-            _launch.check_operand(f"state.{name}", leaf, (m, d, k), dev)
-    bk = resolve_block_k(d, k, block_k, state_io=True)
-    width = tile_width(bk)
-    cs = resolve_cluster(d, width, cluster, state_io=True)
 
-    def launch():
-        at, qt = _transposes(a, q, cs)
-        w, z, u1, u2 = (torch.empty((m, d, k), dtype=torch.float32, device=dev)
-                        for _ in range(4))
-        counts = torch.empty((m, -(-k // bk)), dtype=torch.int32, device=dev)
-        scratch = _scratch(m, d, k, bk, width, cs, dev)
+    def outputs(m, d, k, plan, dev):
+        # w, z, u1, u2, then the executed iterations of every (machine, block)
+        return (*(_empty(m, d, k, device=dev) for _ in range(4)),
+                _empty(m, -(-k // plan.block_k), device=dev, dtype=torch.int32))
+
+    def call(head, outs, tail, stream):
         state_in = (None,) * 4 if state is None else tuple(leaf.data_ptr() for leaf in state)
-        code = _K3(
-            a.data_ptr(), q.data_ptr(), _ptr(at), _ptr(qt),
-            *(t.data_ptr() for t in (inv_eig, b, lam, rho)), *state_in,
-            *(t.data_ptr() for t in (w, z, u1, u2, counts)), _ptr(scratch),
-            m, d, k, bk, width, cs, iters, alpha, 1.0 - alpha,
-            int(tol is not None), 0.0 if tol is None else tol, check_every, _launch.stream(dev))
-        _launch.raise_on_error("dantzig_fused_state", code)
-        return FusedSolveResult(w, AdmmState(z, w, u1, u2), counts)
+        return _K3(*head, *state_in, *outs, *tail, int(tol is not None),
+                   0.0 if tol is None else tol, check_every, stream)
 
-    return launch() if cs else _streamed(launch)
+    w, z, u1, u2, counts = _launch_admm(
+        "dantzig_fused_state", (a, q, inv_eig, b, lam, rho), state, iters=iters, alpha=alpha,
+        block_k=block_k, cluster=cluster, state_io=True, outputs=outputs, call=call)
+    return FusedSolveResult(w, AdmmState(z, w, u1, u2), counts)

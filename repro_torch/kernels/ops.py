@@ -31,7 +31,7 @@ from repro_torch.kernels.dantzig_fused import (
     FusedSolveResult,
     dantzig_fused_cuda,
     dantzig_fused_state_cuda,
-    resolve_block_k,
+    plan_launch,
 )
 from repro_torch.kernels.gram import gram_cuda
 from repro_torch.kernels.soft_threshold import soft_threshold_cuda
@@ -119,14 +119,17 @@ def dantzig_fused(a, b: torch.Tensor, lam, *, iters: int = 500, rho=1.0,
     on its max scaled residual every ``check_every`` iterations (capped
     at ``iters``), and ``return_info`` returns the
     :class:`~repro_torch.kernels.dantzig_fused.FusedSolveResult`, whose
-    ``iters`` is (..., num_blocks).  ``block_k`` None sizes the blocks
-    with the Hopper blocking model on every device.
+    ``iters`` is (..., num_blocks).  The call is planned once
+    (:func:`~repro_torch.kernels.dantzig_fused.plan_launch`, ``block_k``
+    None: the blocking rule's choice), on every device: its columns per
+    block go to ``CALL_BLOCKS``, to the launcher and to the plain K3, so
+    the gated blocks are the same on the card and the CPU.
     """
     factor = as_spectral_factor(a)
     *batch, d, k = b.shape
     state_io = tol is not None or state is not None or return_info
     name = "dantzig_fused_state" if state_io else "dantzig_fused"
-    bk = resolve_block_k(d, k, block_k, state_io=state_io)
+    bk = plan_launch(d, k, block_k, state_io).block_k
     _called(name, _machines_shape(batch, d, k), (d, k, bk))
     if state_io:
         result = _dantzig_fused_state(factor, b, lam, iters, rho, alpha, bk, tol,
@@ -136,7 +139,7 @@ def dantzig_fused(a, b: torch.Tensor, lam, *, iters: int = 500, rho=1.0,
         return ref.dantzig_fused_ref(factor.sigma, factor.q, factor.inv_eig, b, lam,
                                      iters=iters, rho=rho, alpha=alpha)
     operands = _machines(factor, b, lam, rho)
-    out = dantzig_fused_cuda(*operands, iters=iters, alpha=alpha, block_k=block_k)
+    out = dantzig_fused_cuda(*operands, iters=iters, alpha=alpha, block_k=bk)
     _count("dantzig_fused", operands[3])
     return out.reshape(*batch, d, k)
 

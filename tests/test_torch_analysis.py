@@ -41,7 +41,7 @@ from repro_torch.core.collectives import CollectiveRecord
 from repro_torch.core.dantzig import DantzigConfig
 from repro_torch.core.solver_dispatch import solve_dantzig
 from repro_torch.kernels import ops
-from repro_torch.kernels.dantzig_fused import SMEM_BYTES, pick_block_k
+from repro_torch.kernels.dantzig_fused import plan_launch
 import test_torch_parity  # noqa: F401  (pins torch to one thread)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -278,23 +278,23 @@ def test_smem_conformance_holds_on_fused_calls_and_trips_on_overruns():
         counts, {"budget": 1024})]
     assert any("budget is 1024" in m for m in small)
     # a block wider than the blocking model allows at d = 200
-    allowed = pick_block_k(200, 200, SMEM_BYTES)
+    allowed = plan_launch(200, 200).block_k
     wide = _counts(call_blocks={("dantzig_fused", 200, 200, allowed + 8): 1})
     messages = [v.message for v in SmemConformance().check(wide)]
-    assert any(f"exceeds pick_block_k's choice {allowed}" in m for m in messages)
+    assert any(f"exceeds plan_launch's choice {allowed}" in m for m in messages)
 
 
 @pytest.mark.parametrize("bk,conforms", [(24, True), (32, False)], ids=["model", "wider"])
 def test_smem_conformance_reads_the_streamed_footprint_at_d1000(bk, conforms):
     # a d = 1,000 K2 call takes the streamed template: its 24-column block (two product
     # buffers, 192,192 bytes) conforms; 32 columns exceed the model and the budget
-    assert pick_block_k(1000, 1000, SMEM_BYTES) == 24
+    assert plan_launch(1000, 1000).block_k == 24
     counts = _counts(call_blocks={("dantzig_fused", 1000, 1000, bk): 1})
     messages = [v.message for v in SmemConformance().check(counts)]
     if conforms:
         assert messages == []
     else:
-        assert any("exceeds pick_block_k's choice 24" in m for m in messages)
+        assert any("exceeds plan_launch's choice 24" in m for m in messages)
         assert any("the streamed block (d=1000, W=32) needs 256256 bytes" in m for m in messages)
 
 

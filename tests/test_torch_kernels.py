@@ -274,13 +274,13 @@ def test_wrappers_count_each_launch_by_its_operand_shape(monkeypatch):
 def test_blocking_model_at_paper_shape():
     # d = 200: a 40-column tile fills 224,320 of the 232,448 bytes, so
     # k = 200 runs as 5 blocks of 40; one column alone also fits
-    assert fused_model.max_block_k(200) == 40
-    assert fused_model.pick_block_k(200, 200) == 40
-    assert fused_model.pick_block_k(200, 1) == 1
-    assert fused_model.pick_block_k(200, 41) == 21  # two equal blocks
-    assert fused_model.tile_width(21) == 24
-    assert (fused_model.fused_block_smem_bytes(200, 40)
-            <= fused_model.SMEM_BYTES < fused_model.fused_block_smem_bytes(200, 48))
+    plan = fused_model.plan_launch
+    assert plan(200, 48, block_k=48).block_k == 40  # the widest tile that fits
+    assert plan(200, 200)[:2] == (40, 40)
+    assert plan(200, 1)[:2] == (1, 1)
+    assert plan(200, 41)[:2] == (21, 24)  # two equal blocks, in the 24-column tile
+    assert (fused_model.blocking_smem_bytes(200, 40)
+            <= fused_model.SMEM_BYTES < fused_model.blocking_smem_bytes(200, 48))
 
 
 def test_fused_never_falls_back_to_scan():
@@ -305,6 +305,8 @@ def test_select_solver_kind_matches_reference_at_test_shapes(d, k, fused):
 def test_block_k_override_caps_at_widest_tile():
     assert select_solver(DantzigConfig(fused=True, block_k=8), 40, 40) == ("fused_blocked", 8)
     assert select_solver(DantzigConfig(fused=True, block_k=500), 200, 200) == ("fused_blocked", 40)
+    assert fused_model.plan_launch(40, 40, block_k=8)[:2] == (8, 8)
+    assert fused_model.plan_launch(200, 200, block_k=500)[:2] == (40, 40)
 
 
 def test_plain_versions_match_reference_oracles():
@@ -456,18 +458,19 @@ def test_state_io_blocking_model_at_paper_shape():
     # takes the same 40-column tile as K2: CLIME's k = 200 is 5 blocks of
     # 40 (100 blocks for m = 20, one wave on 132 SMs), the k = 8 direction
     # fold one block of 8
-    assert fused_model.max_block_k(200, state_io=True) == 40
-    assert fused_model.pick_block_k(200, 200, state_io=True) == 40
-    assert fused_model.pick_block_k(200, 8, state_io=True) == 8
-    assert (fused_model.fused_block_smem_bytes(200, 40, state_io=True)
+    plan = fused_model.plan_launch
+    assert plan(200, 48, block_k=48, state_io=True).block_k == 40
+    assert plan(200, 200, state_io=True).block_k == 40
+    assert plan(200, 8, state_io=True)[:2] == (8, 8)
+    assert (fused_model.blocking_smem_bytes(200, 40, state_io=True)
             <= fused_model.SMEM_BYTES
-            < fused_model.fused_block_smem_bytes(200, 48, state_io=True))
+            < fused_model.blocking_smem_bytes(200, 48, state_io=True))
     assert select_solver(DantzigConfig(fused=True, tol=1e-4), 200, 200) == ("fused_blocked", 40)
-    # K3 keeps the first port's footprint, so it runs out first: one column
+    # K3 keeps the 28·d·W-byte footprint, so it runs out first: one column
     # at d = 8301 fits K2's footprint and not K3's
-    assert fused_model.max_block_k(8301) == 1
+    assert plan(8301, 8).block_k == 1
     with pytest.raises(ValueError, match="shared memory"):
-        fused_model.max_block_k(8301, state_io=True)
+        plan(8301, 1, state_io=True)
     with pytest.raises(ValueError, match="shared memory"):
         select_solver(DantzigConfig(fused=True, tol=1e-4), 8301, 1)
 
@@ -484,11 +487,11 @@ def test_state_io_blocking_model_at_paper_shape():
 def test_cluster_model_at_paper_shapes(k, state_io, cluster, tile, smem):
     # d = 200, m = 20: the cluster template at every main shape, with the
     # shared memory per block the card reports for it
-    bk = fused_model.resolve_block_k(200, k, None, state_io=state_io)
-    width = fused_model.tile_width(bk)
-    assert fused_model.pick_cluster_size(200, width, state_io) == cluster
-    assert fused_model.cluster_tile(200, width, cluster) == tile
-    assert fused_model.cluster_smem_bytes(200, width, cluster, state_io) == smem
+    plan = fused_model.plan_launch(200, k, state_io=state_io)
+    assert not plan.streamed and plan.cluster == cluster
+    assert fused_model.cluster_tile(200, plan.width, cluster) == tile
+    assert plan.smem_bytes == fused_model.cluster_smem_bytes(200, plan.width, cluster,
+                                                             state_io) == smem
     assert smem + fused_model.CLUSTER_STATIC_SMEM_BYTES <= fused_model.SMEM_BYTES
 
 
@@ -504,7 +507,8 @@ def test_cluster_fit_rule_prefers_the_row_tile_then_the_smallest_cluster(width, 
             for cs in fused_model.CLUSTER_SIZES} == fits
     row = [cs for cs, ok in fits.items() if ok and fused_model.cluster_tile(200, width, cs) == "row"]
     first = (row or [cs for cs, ok in fits.items() if ok])[0]
-    assert fused_model.pick_cluster_size(200, width, state_io) == first
+    plan = fused_model.plan_launch(200, width, state_io=state_io)
+    assert plan.width == width and plan.cluster == first
 
 
 @pytest.mark.parametrize("d, k, cluster", [
@@ -514,20 +518,26 @@ def test_cluster_fit_rule_prefers_the_row_tile_then_the_smallest_cluster(width, 
     (37, 8, 2),  # a small d: two blocks of 19 rows
 ])
 def test_cluster_model_sends_oversized_slices_to_the_streamed_template(d, k, cluster):
-    width = fused_model.tile_width(fused_model.resolve_block_k(d, k, None))
-    assert fused_model.pick_cluster_size(d, width) == cluster
-    fitting = [cs for cs in fused_model.CLUSTER_SIZES if fused_model.cluster_fits(d, width, cs)]
+    plan = fused_model.plan_launch(d, k)
+    assert plan.cluster == cluster and plan.streamed == (cluster == 0)
+    fitting = [cs for cs in fused_model.CLUSTER_SIZES
+               if fused_model.cluster_fits(d, plan.width, cs)]
     assert bool(fitting) == bool(cluster)
     for cs in fitting:
-        assert (fused_model.cluster_smem_bytes(d, width, cs)
+        assert (fused_model.cluster_smem_bytes(d, plan.width, cs)
                 + fused_model.CLUSTER_STATIC_SMEM_BYTES <= fused_model.SMEM_BYTES)
+    if not cluster:
+        assert plan.smem_bytes == fused_model.streamed_smem_bytes(d, plan.width)
 
 
 def test_resolve_cluster_takes_a_size_or_the_model():
-    assert fused_model.resolve_cluster(200, 1, None) == 4
-    assert fused_model.resolve_cluster(200, 1, 0) == 0
-    assert fused_model.resolve_cluster(200, 1, 16) == 16
+    # the plan's template: the model's pick, or a forced cluster size (0: streamed)
+    assert fused_model.plan_launch(200, 1).cluster == 4
+    assert fused_model.plan_launch(200, 1, cluster=0).cluster == 0
+    forced = fused_model.plan_launch(200, 1, cluster=16)
+    assert forced.cluster == 16
+    assert forced.smem_bytes == fused_model.cluster_smem_bytes(200, 1, 16)
     with pytest.raises(ValueError, match="cluster"):
-        fused_model.resolve_cluster(200, 1, 3)
+        fused_model.plan_launch(200, 1, cluster=3)
     with pytest.raises(ValueError, match="micro-tile"):
         fused_model.cluster_smem_bytes(200, 48, 2)

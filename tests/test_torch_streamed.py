@@ -15,15 +15,16 @@ from repro_torch.kernels.spectral import SpectralFactor
 def test_the_d1000_fit_takes_the_streamed_template_and_d200_a_cluster():
     # d = 1,000: no cluster size fits, for K2 and K3 alike; K2 is sized by the streamed
     # template's own footprint (two product buffers: 24 columns), K3 keeps its 8
-    assert fused.max_block_k(1000) == 24 and fused.max_block_k(1000, state_io=True) == 8
-    assert fused.pick_cluster_size(1000, 24) == fused.pick_cluster_size(1000, 8, True) == 0
-    assert fused.pick_cluster_size(1000, 1) == 0
-    assert fused.pick_block_k(1000, 1000) == 24 and fused.pick_block_k(1000, 1) == 1
-    assert fused.pick_block_k(1000, 1000, state_io=True) == 8
+    plan = fused.plan_launch
+    assert plan(1000, 48, block_k=48).block_k == 24
+    assert plan(1000, 48, block_k=48, state_io=True).block_k == 8
+    assert plan(1000, 1000) == (24, 24, 0, fused.streamed_smem_bytes(1000, 24))
+    assert plan(1000, 1000, state_io=True) == (8, 8, 0, fused.streamed_smem_bytes(1000, 8, True))
+    assert plan(1000, 1)[:3] == (1, 1, 0)
     # d = 200, the benchmarked fit's width: 40-column tiles on a cluster
-    assert fused.pick_block_k(200, 200) == 40
-    assert fused.pick_cluster_size(200, 40) in fused.CLUSTER_SIZES
-    assert fused.pick_cluster_size(200, 1) in fused.CLUSTER_SIZES
+    assert plan(200, 200)[:2] == (40, 40)
+    assert plan(200, 200).cluster in fused.CLUSTER_SIZES
+    assert plan(200, 1).cluster in fused.CLUSTER_SIZES
 
 
 @pytest.fixture
@@ -80,10 +81,10 @@ def test_a_streamed_launch_is_marked_once_and_a_cluster_launch_never(launches, k
         for _ in range(3):
             _call(kernel, d, k)
     spans = _streamed_spans(prof)
-    bk = fused.resolve_block_k(d, k, None, state_io=kernel == "K3")
+    plan = fused.plan_launch(d, k, state_io=kernel == "K3")
     assert [(name, cs == 0, at, scratch) for name, cs, at, scratch, _, _ in launches] == [
         (kernel, streamed, streamed, streamed)] * 3
-    assert {(b, w) for *_, b, w in launches} == {(bk, fused.tile_width(bk))}
+    assert {(b, w) for *_, b, w in launches} == {(plan.block_k, plan.width)}
     assert len(spans) == (3 if streamed else 0)
     # the span holds the transposes the streamed template reads (A^T, Q^T: two copies)
     assert all(inside.count("aten::contiguous") == 2 for inside in spans), spans
@@ -100,8 +101,8 @@ def test_with_no_profiler_a_streamed_launch_records_nothing(launches, monkeypatc
 
 
 # (columns per block, tile, cluster size) of each (d, k) that the cells, the mesh and the smoke
-# run on the cluster template, K2 and K3 alike: the first port's blocking, which every shape the
-# cluster template takes keeps
+# run on the cluster template, K2 and K3 alike: the 28·d·W-byte blocking rule, which every shape
+# the cluster template takes keeps
 CLUSTER_BLOCKING = {
     **{(d, 1): (1, 1, 2 if d < 200 else 4) for d in (120, 128, 200, 256)},
     **{(d, 5): (5, 8, 4 if d < 200 else 8) for d in (120, 128, 200, 256)},
@@ -114,9 +115,7 @@ CLUSTER_BLOCKING = {
 @pytest.mark.parametrize("state_io", [False, True], ids=["K2", "K3"])
 @pytest.mark.parametrize("d,k", sorted(CLUSTER_BLOCKING))
 def test_every_cluster_shape_keeps_its_blocking(d, k, state_io):
-    bk = fused.pick_block_k(d, k, state_io=state_io)
-    width = fused.tile_width(bk)
-    assert (bk, width, fused.pick_cluster_size(d, width, state_io)) == CLUSTER_BLOCKING[d, k]
+    assert fused.plan_launch(d, k, state_io=state_io)[:3] == CLUSTER_BLOCKING[d, k]
 
 
 @pytest.mark.parametrize("k,state_io,bk", [(1000, False, 24), (1, False, 1), (1000, True, 8),
@@ -131,10 +130,38 @@ def test_a_d1000_call_records_the_model_blocks(k, state_io, bk):
     ops.dantzig_fused(factor, torch.zeros(d, k), 0.1, iters=0, return_info=state_io)
     name = "dantzig_fused_state" if state_io else "dantzig_fused"
     assert ops.CALL_BLOCKS == {(name, d, k, bk): 1}
-    assert fused.pick_block_k(d, k, state_io=state_io) == bk
-    width = fused.tile_width(bk)
-    assert fused.pick_cluster_size(d, width, state_io) == 0
+    plan = fused.plan_launch(d, k, state_io=state_io)
+    assert plan.block_k == bk and plan.streamed
     # the streamed block the launch takes: two product buffers at K2's 24 columns
-    assert fused.streamed_smem_bytes(d, width, state_io) <= fused.SMEM_BYTES
+    assert plan.smem_bytes == fused.streamed_smem_bytes(d, plan.width, state_io)
+    assert plan.smem_bytes <= fused.SMEM_BYTES
     if not state_io and k > 1:
         assert fused.streamed_smem_bytes(d, 32) > fused.SMEM_BYTES
+
+
+# (bk, width, cluster) the wrapper hands the C launcher at each cell's shapes: the d = 200 fit's
+# direction and CLIME block, the d = 1,000 fit's (streamed), and the serving refit's K3
+@pytest.mark.parametrize("kernel,d,k,block_k,handed", [
+    ("K2", 200, 1, None, (1, 1, 4)),
+    ("K2", 200, 200, None, (40, 40, 4)),
+    ("K2", 1000, 1, None, (1, 1, 0)),
+    ("K2", 1000, 1000, None, (24, 24, 0)),
+    ("K3", 120, 120, 40, (40, 40, 4)),
+    ("K3", 120, 1, None, (1, 1, 2)),
+], ids=["d200 direction", "d200 CLIME", "d1000 direction", "d1000 CLIME", "serving CLIME",
+        "serving direction"])
+def test_the_wrapper_hands_c_the_planned_launch(launches, monkeypatch, kernel, d, k, block_k,
+                                                handed):
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    factor = SpectralFactor(torch.eye(d), torch.eye(d), torch.ones(d))
+    ops.reset_launches()
+    try:
+        ops.dantzig_fused(factor, torch.zeros(d, k), 0.1, iters=5, block_k=block_k,
+                          tol=1e-3 if kernel == "K3" else None)
+        name = "dantzig_fused_state" if kernel == "K3" else "dantzig_fused"
+        assert ops.CALL_BLOCKS == {(name, d, k, handed[0]): 1}
+        assert ops.LAUNCH_SHAPES == {(name, 1, d, k): 1}
+    finally:
+        ops.reset_launches()
+    streamed = handed[2] == 0
+    assert launches == [(kernel, handed[2], streamed, streamed, *handed[:2])]
