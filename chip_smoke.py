@@ -36,7 +36,8 @@ Phases, each of which exits non-zero on failure:
    d = 120; K2 and K3 at m = 80, d = 200, k = 1 and 200), each with its
    template and the card's cudaOccupancyMaxActiveClusters; and at the
    launch shapes the mesh runs (f)-(h) add, one machine a rank (m = 1):
-   d = 200 with k in {1, 200, 67} and d = 128 with k in {1, 4, 64};
+   d = 200 with k in {1, 200, 68} (68: a model rank's 67 CLIME columns
+   and the direction's, one launch) and d = 128 with k in {1, 4, 64};
    and at run (i)'s: K1 at (1, n, 120) for each batch size n it sees, and
    on a tick's rows corrupted with NaN, inf and +-1e12 garbage (the
    non-finite entries where the plain version has them), and K3 at
@@ -49,7 +50,10 @@ Phases, each of which exits non-zero on failure:
    d = 1,000 shapes of the ``sec51_d1000_m20`` fit on the streamed
    template (``D1000``: the direction, m = 20, k = 1, and a 2-machine
    slice of the CLIME block), within the K2 pin of the plain version and
-   bit for bit against narrower column blocks and K3 at ``tol=None``; and what
+   bit for bit against narrower column blocks and K3 at ``tol=None``, and
+   the fit's joined launch on the slice's machines (the direction's
+   column in the last block's spare lane, (2, 1,000, 1,001)) bit for bit
+   against the slice and the direction launched alone; and what
    cuSOLVER's eigh does with a non-finite Sigma_hat (the port's factor
    is all NaN);
 3. main path: Algorithm 1 at the paper's §5.1 size (d = 200, AR(0.8),
@@ -440,7 +444,8 @@ RECORDED_DIGESTS = {
 # K2's d = 1,000 launch shapes, on the streamed template (no cluster fits): the
 # sec51_d1000_m20 fit's direction (20 machines, k = 1) and a 2-machine slice of its
 # CLIME block, each machine's Sigma_hat from 500 rows (rank-deficient, as there);
-# the slice is held and timed at every column block of D1000_TILES
+# the slice is held and timed at every column block of D1000_TILES, and joined with
+# the direction's column as the fit launches them (d1000_joined)
 D1000 = SimpleNamespace(d=1000, n=500, shapes=(("direction", 20, 1), ("CLIME slice", 2, 1000)),
                         tiles=(8, 16, 24))
 
@@ -533,9 +538,46 @@ def d1000_checks(inputs: dict) -> None:
         check(all(same.values()), f"d=1000 {label}: not bit-identical: {same}")
 
 
+def d1000_joined(inputs: dict) -> tuple:
+    """The sec51_d1000_m20 fit's joined launch on the CLIME slice's machines: the slice's
+    operands with the first machines' direction column after its 1,000 columns, each column
+    with its own lam; and the direction's column alone on the same machines."""
+    a, q, inv, b, lam, rho = inputs["CLIME slice"]
+    m = b.shape[0]
+    b_dir, lam_dir = inputs["direction"][3][:m].contiguous(), inputs["direction"][4][:m]
+    rho_dir = torch.ones(m, 1, device=b.device)
+    joined = (a, q, inv, torch.cat([b, b_dir], -1).contiguous(),
+              torch.cat([lam, lam_dir], -1).contiguous(), torch.cat([rho, rho_dir], -1))
+    return joined, (a, q, inv, b_dir, lam_dir.contiguous(), rho_dir)
+
+
+def d1000_joined_checks(inputs: dict, iters: int) -> dict:
+    """The joined launch against the CLIME slice and the direction launched alone, at
+    ``iters`` iterations: each column bit for bit, and the joined launch planned as the
+    slice's (the same blocks, tile and template; the direction in a spare lane)."""
+    from repro_torch.kernels.dantzig_fused import dantzig_fused_cuda, rides_in_tail
+
+    joined, alone = d1000_joined(inputs)
+    m, d, k = joined[3].shape
+    shape, slice_shape = launch_shape(m, d, k, False), launch_shape(m, d, k - 1, False)
+    got = dantzig_fused_cuda(*joined, iters=iters, alpha=1.7)
+    same = {"CLIME columns": torch.equal(got[..., :-1], dantzig_fused_cuda(
+                *inputs["CLIME slice"], iters=iters, alpha=1.7)),
+            "direction column": torch.equal(got[..., -1:], dantzig_fused_cuda(
+                *alone, iters=iters, alpha=1.7))}
+    print(f"[kernels] d=1000 joined (m={m}, k={k}), {iters} it.: {json.dumps(shape)}; "
+          f"bit-identical to the launches alone: {json.dumps(same)}")
+    check(shape == slice_shape and rides_in_tail(d, k - 1, 1),
+          f"d=1000 joined: planned {shape}, the CLIME slice {slice_shape}")
+    check(all(same.values()), f"d=1000 joined ({iters} it.): not bit-identical: {same}")
+    return same
+
+
 def d1000_times(inputs: dict) -> dict:
     """K2 at each D1000 shape, ITERS iterations, against its bound; the CLIME slice at each
-    column block of D1000.tiles, in two turns."""
+    column block of D1000.tiles, in two turns; then the joined launch, the slice and the
+    direction alone on the slice's machines, in three turns, and the joined launch's columns
+    held to the two others' bit for bit at ITERS."""
     from repro_torch.kernels.dantzig_fused import dantzig_fused_cuda, plan_launch
 
     rows = {}
@@ -555,6 +597,17 @@ def d1000_times(inputs: dict) -> dict:
                        "x_bound_by_block_k": {str(w): min(v) / bound_ms
                                               for w, v in times.items()}}
         print(f"[times] K2 d=1000 {label}: {json.dumps(rows[label])}")
+    joined, alone = d1000_joined(inputs)
+    calls = {"joined": joined, "CLIME slice": inputs["CLIME slice"], "direction alone": alone}
+    times = {name: [] for name in calls}
+    for _ in range(3):
+        for name, operands in calls.items():
+            times[name].append(cuda_ms(lambda: dantzig_fused_cuda(
+                *operands, iters=ITERS, alpha=1.7), 1))
+    rows["joined"] = {"shape": list(joined[3].shape), "iters": ITERS, "ms": times,
+                      "joined_over_slice": min(times["joined"]) / min(times["CLIME slice"]),
+                      "bit_identical": d1000_joined_checks(inputs, ITERS)}
+    print(f"[times] K2 d=1000 joined: {json.dumps(rows['joined'])}")
     return rows
 
 
@@ -1916,6 +1969,7 @@ def main() -> None:
     # narrower blocks and to K3 bit for bit
     d1000 = d1000_inputs(edge_gen)
     d1000_checks(d1000)
+    d1000_joined_checks(d1000, CHECK_ITERS)
 
     # the launch shapes runs (d) and (e) add, on their own statistics, at
     # CHECK_ITERS iterations: the K2 and K3 templates with the card's
@@ -1955,7 +2009,8 @@ def main() -> None:
     # the launch shapes the mesh runs (f)-(h) add: one machine a rank (m = 1), on
     # one machine's statistics of each run: the direction (k = 1; K = 4 in run
     # (g)'s K-class head), every CLIME column (model = 1), and one model rank's
-    # share of them (67 of d = 200 over 3 ranks, 64 of d = 128 over 2)
+    # share of them (64 of d = 128 over 2; 67 of d = 200 over 3, with the direction's
+    # column after them, which rides in that launch: rides_in_tail)
     mh = mesh_h_inputs(dev, problem)
     mg = mesh_g_stats(dev)
     f_stats = pipeline.suff_stats(xs[:1], ys[:1], use_kernel=False)
@@ -1966,8 +2021,10 @@ def main() -> None:
     mesh_shapes = {
         "mesh k=1 d=200": (f_fac, f_stats.mu_d.unsqueeze(-1), lam),
         "mesh CLIME k=200": (f_fac, torch.eye(D, device=dev)[None], lam),
-        f"mesh CLIME k={cols_h} d=200": (spectral_factor(h_stats.sigma),
-                                         torch.eye(D, device=dev)[None, :, :cols_h], mh.lam),
+        f"mesh CLIME k={cols_h} + direction d=200": (
+            spectral_factor(h_stats.sigma),
+            torch.cat([torch.eye(D, device=dev)[None, :, :cols_h],
+                       h_stats.mu_d.unsqueeze(-1)], -1), mh.lam),
         "mesh k=1 d=128": (g_fac, mg.binary.rhs, mg.lam),
         "mesh k=4 d=128": (g_mfac, mg.multiclass.rhs, mg.lam_k),
         f"mesh CLIME k={cols_g} d=128": (g_fac, torch.eye(128, device=dev)[None, :, :cols_g],
@@ -2468,7 +2525,8 @@ def main() -> None:
     gaps("(h)", h_got, h_sim)
     hold_rows("run (h)", metrics(h_got, problem.beta_star, z, labels, mh.mu1, mh.mu2),
               metrics(h_sim, problem.beta_star, z, labels, mh.mu1, mh.mu2), 1e-4)
-    ranks_launched("(h)", "one-shot fused", h_rep["one-shot fused"], gram=None, dantzig_fused=2)
+    # each rank's 67 CLIME columns and the direction's: one launch (rides_in_tail)
+    ranks_launched("(h)", "one-shot fused", h_rep["one-shot fused"], gram=None, dantzig_fused=1)
     ranks_launched("(h)", "one-shot use_kernel (K4)", h_rep["one-shot use_kernel (K4)"],
                    gram=None, soft_threshold=None, dantzig_fused=0)
     for kernel in ops.LAUNCHES:

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core.dantzig import DantzigConfig
 from repro_torch.core.solver_dispatch import SolveResult, solve_dantzig, solve_dantzig_full
+from repro_torch.kernels.ref import per_column
 from repro_torch.kernels.spectral import sigma_of
 
 
@@ -39,6 +40,23 @@ def solve_clime_columns_full(sigma, cols: torch.Tensor, lam,
                              state=None) -> SolveResult:
     """:func:`solve_clime_columns` returning the full warm-carry :class:`SolveResult`."""
     return solve_dantzig_full(sigma, _clime_rhs(sigma, cols), lam, cfg, rho=rho, state=state)
+
+
+def solve_clime_columns_joined(sigma, cols: torch.Tensor, lam_prime, rhs: torch.Tensor, lam,
+                               cfg: DantzigConfig = DantzigConfig()):
+    """:func:`solve_clime_columns` and the Dantzig problems of ``rhs`` (..., d, K) as one solve.
+
+    The K columns go after the CLIME columns, so each CLIME column keeps
+    its column block; ``lam_prime`` holds for the CLIME columns, ``lam``
+    for the K others, and every column takes ``cfg.rho``.  Returns
+    ``(theta, beta)``, contiguous (..., d, len(cols)) and (..., d, K).
+    """
+    unit = _clime_rhs(sigma, cols)
+    rhs = rhs.expand(*unit.shape[:-1], rhs.shape[-1])
+    lams = torch.cat([per_column(lam_prime, unit), per_column(lam, rhs)], -1)[..., 0, :]
+    w = solve_dantzig(sigma, torch.cat([unit, rhs], -1), lams, cfg)
+    k = cols.shape[0]
+    return w[..., :k].contiguous(), w[..., k:].to(rhs.dtype).contiguous()
 
 
 def solve_clime(sigma, lam, cfg: DantzigConfig = DantzigConfig(), rho=None, state=None,

@@ -38,13 +38,19 @@ from repro_torch.core import collectives
 from repro_torch.core.clime import (
     solve_clime_columns,
     solve_clime_columns_full,
+    solve_clime_columns_joined,
     symmetrize_min,
 )
 from repro_torch.core.dantzig import DantzigConfig
-from repro_torch.core.solver_dispatch import solve_dantzig, solve_dantzig_full
+from repro_torch.core.solver_dispatch import smem_budget, solve_dantzig, solve_dantzig_full
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.dantzig_fused import AdmmState
+from repro_torch.kernels.dantzig_fused import AdmmState, rides_in_tail
 from repro_torch.kernels.spectral import SpectralFactor, spectral_factor
+
+# The span around a joined direction and CLIME solve (see :func:`solves_from_stats`), and the
+# number of such solves, as the CPU tests count them.
+FOLDED_SPAN = "repro_torch.solve.folded"
+FOLDS = 0
 
 
 class HeadStats(NamedTuple):
@@ -226,7 +232,19 @@ def solves_from_stats(hs: HeadStats, *, lam, lam_prime, cfg: DantzigConfig = Dan
                       rho_theta=None, state_beta: AdmmState | None = None,
                       state_theta: AdmmState | None = None, symmetrize: bool = False,
                       full: bool = False) -> WorkerSolves:
-    """The solve body of :func:`worker_solves`, from pre-built statistics."""
+    """The solve body of :func:`worker_solves`, from pre-built statistics.
+
+    In the narrow K2 mode (not ``full``, ``cfg.fused``, no ``cfg.tol``,
+    no warm ``rho_*`` or ``state_*``) the direction's K columns ride in
+    the CLIME launch wherever its plan has room for them in the masked
+    lanes of its last column block
+    (:func:`~repro_torch.kernels.dantzig_fused.rides_in_tail`, d = 1,000
+    at K = 1): one launch, inside :data:`FOLDED_SPAN`, where the
+    direction and the CLIME columns otherwise take one each.  A column's
+    result does not depend on its block, so either way gives the same
+    answer.
+    """
+    global FOLDS
     # ONE eigendecomposition for all machines: the direction solve and
     # every CLIME column share this factor (it is rho- and lam-independent).
     factor = spectral_factor(hs.sigma)
@@ -240,6 +258,8 @@ def solves_from_stats(hs: HeadStats, *, lam, lam_prime, cfg: DantzigConfig = Dan
             raise ValueError(f"model_axis_size is {model_axis_size}, the model axis has {size}")
         cols, valid = model_columns(d, collectives.group_rank(model_axis), size,
                                     hs.rhs.device)
+    carries = dict(rho_beta=None, rho_theta=None, state_beta=None, state_theta=None,
+                   iters_beta=None, iters_theta=None)
     if full:
         with obs.span("repro_torch.solve.direction"):
             dir_res = solve_dantzig_full(factor, hs.rhs, lam, cfg, rho=rho_beta,
@@ -251,14 +271,20 @@ def solves_from_stats(hs: HeadStats, *, lam, lam_prime, cfg: DantzigConfig = Dan
         carries = dict(rho_beta=dir_res.rho, rho_theta=theta_res.rho,
                        state_beta=dir_res.state, state_theta=theta_res.state,
                        iters_beta=dir_res.iters, iters_theta=theta_res.iters)
+    elif (cfg.fused and cfg.tol is None
+          and all(v is None for v in (rho_beta, rho_theta, state_beta, state_theta))
+          and rides_in_tail(d, cols.shape[0], hs.rhs.shape[-1], block_k=cfg.block_k,
+                            budget=smem_budget(cfg))):
+        FOLDS += 1
+        with obs.span(FOLDED_SPAN):
+            theta, beta_hat = solve_clime_columns_joined(factor, cols, lam_prime, hs.rhs, lam,
+                                                         cfg)
     else:
         with obs.span("repro_torch.solve.direction"):
             beta_hat = solve_dantzig(factor, hs.rhs, lam, cfg, rho=rho_beta, state=state_beta)
         with obs.span("repro_torch.solve.clime"):
             theta = solve_clime_columns(factor, cols, lam_prime, cfg, rho=rho_theta,
                                         state=state_theta)
-        carries = dict(rho_beta=None, rho_theta=None, state_beta=None, state_theta=None,
-                       iters_beta=None, iters_theta=None)
     if symmetrize:
         theta = symmetrize_min(theta)
     return WorkerSolves(stats=hs, beta_hat=beta_hat, theta=theta, valid=valid, factor=factor,
@@ -286,7 +312,9 @@ def apply_correction(theta: torch.Tensor, valid, resid: torch.Tensor,
         # one SpectralFactor per worker: refinement and the lambda path
         # both reuse it, so a second eigh is always a regression
         PrimitiveBudget("eigh", exact=1),
-        # fused cfg: direction solve + CLIME block = exactly 2 launches;
+        # fused cfg: direction solve + CLIME block = exactly 2 launches, or 1
+        # where the direction rides in the CLIME launch's last block
+        # (rides_in_tail: narrow K2 at d = 1,000, never at these cases' d);
         # scan cfg: none (a third launch means the factor stopped folding)
         PrimitiveBudget("pallas_call", exact=Param("pallas_calls")),
         # the binary head's statistics: two K1 launches on the card

@@ -76,9 +76,13 @@ def select_solver(cfg: "_dantzig.DantzigConfig", d: int, k: int,
         return SolverChoice("scan")
     if state_io is None:
         state_io = cfg.tol is not None
-    budget = SMEM_BYTES if cfg.vmem_budget is None else min(cfg.vmem_budget, SMEM_BYTES)
-    bk = plan_launch(d, k, cfg.block_k, state_io, budget).block_k
+    bk = plan_launch(d, k, cfg.block_k, state_io, smem_budget(cfg)).block_k
     return SolverChoice("fused" if bk >= k else "fused_blocked", bk)
+
+
+def smem_budget(cfg: "_dantzig.DantzigConfig") -> float:
+    """The shared memory a fused launch may plan for: ``cfg.vmem_budget``, capped to the card's."""
+    return SMEM_BYTES if cfg.vmem_budget is None else min(cfg.vmem_budget, SMEM_BYTES)
 
 
 class SolveResult(NamedTuple):

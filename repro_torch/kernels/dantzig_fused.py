@@ -221,6 +221,22 @@ def plan_launch(d: int, k: int, block_k: int | None = None, state_io: bool = Fal
     return LaunchPlan(bk, width, cs, smem)
 
 
+def rides_in_tail(d: int, k: int, extra: int, state_io: bool = False, block_k: int | None = None,
+                  budget: float = SMEM_BYTES) -> bool:
+    """Whether ``extra`` columns appended to a (d, k) K2 batch run in lanes its launch already
+    runs: the (d, k + extra) plan is the (d, k) plan, with as many column blocks, so the joined
+    launch has the same grid, tiles and template, and its added columns fill the masked lanes of
+    the last block of each machine.  ``block_k`` and ``budget`` as :func:`plan_launch`.
+
+    Always False for K3 (``state_io``): with ``tol`` its blocks stop together, so a column added
+    to a block is part of the block's answer."""
+    if state_io:
+        return False
+    plan = plan_launch(d, k, block_k, budget=budget)
+    return (plan_launch(d, k + extra, block_k, budget=budget) == plan
+            and -(-(k + extra) // plan.block_k) == -(-k // plan.block_k))
+
+
 _K2 = _launch.CFunction("dantzig_fused", "dantzig_fused_launch",
                         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
                         + [ctypes.c_void_p])

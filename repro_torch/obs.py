@@ -2,7 +2,8 @@
 
 The fit and the serving runtime mark their steps with :func:`span`:
 ``repro_torch.suff_stats``, ``.spectral_factor``, ``.solve.direction``,
-``.solve.clime``, ``.debias`` and ``.rounds`` in a fit;
+``.solve.clime`` (or ``.solve.folded``, where the direction's columns
+ride in the CLIME launch), ``.debias`` and ``.rounds`` in a fit;
 ``repro_torch.classify``, ``.ingest`` (``.ingest.screen``,
 ``.ingest.merge``), ``.refresh``, ``.rung.warm`` / ``.cold`` /
 ``.refactor``, ``.verdict`` and ``.publish`` in serving; and
