@@ -140,10 +140,9 @@ def _garbage_like(x: torch.Tensor) -> torch.Tensor:
 def corrupt_block(code: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
     """Apply the per-machine corruption ``code`` (...,) to the (..., rows, K) ``block``."""
     c = _per_machine(code, block, 2)
-    out = torch.where(c == CORRUPT_NAN, torch.tensor(float("nan"), dtype=block.dtype,
-                                                     device=block.device), block)
-    out = torch.where(c == CORRUPT_INF, torch.tensor(float("inf"), dtype=block.dtype,
-                                                     device=block.device), out)
+    # Python scalars, never a tensor built from one: that is a copy to the device a call
+    out = torch.where(c == CORRUPT_NAN, float("nan"), block)
+    out = torch.where(c == CORRUPT_INF, float("inf"), out)
     return torch.where(c == CORRUPT_GARBAGE, _garbage_like(block), out)
 
 

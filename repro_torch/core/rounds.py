@@ -58,6 +58,12 @@ from repro_torch.core.pipeline import WorkerSolves
 from repro_torch.core.transport import CommPlan, Transport, TransportState, resolve_comm
 from repro_torch.kernels.dantzig_fused import AdmmState
 
+# the spans of one refinement round and of its aggregation (the screen, the masked, trimmed or
+# dense mean and the last-good select), inside ``repro_torch.rounds``; their counts are the
+# rounds and the aggregates a call executed
+ROUND_SPAN = "repro_torch.rounds.round"
+AGGREGATE_SPAN = "repro_torch.rounds.aggregate"
+
 
 def refine_step(ws: WorkerSolves, anchor: torch.Tensor, model_axis=None) -> torch.Tensor:
     """Every machine's closed-form debias correction around ``anchor`` (..., d, K):
@@ -210,87 +216,93 @@ def _refinement_rounds(drv, *, rounds: int, anchor: torch.Tensor, transport: Tra
             ref = drv.agg_zeros(anchor)
         history = [anchor]  # entry j-1 = the round-j anchor
         bars = []
+        # the one-shot round (T = 1, the default plan) is the paper's estimator, no refinement
+        # round: it opens neither round span
+        marked = rounds > 1 or masked or faulted or transport.any_up or transport.any_down
         for t in range(1, rounds + 1):
-            compression = transport.up(t).comp
-            live = code = None
-            if faulted:
-                live, stale, code = plan.row(t)
-            a = history[-1]
-            if faulted and staleness > 0 and t > 1:
-                a = faults_core.select_anchor(history, stale, t, staleness)
-            beta_tilde = drv.correction(a)
-            if compression is None:
-                wire = drv.corrupt(code, beta_tilde) if faulted else beta_tilde
-                if not masked and not faulted:
-                    bar = drv.mean(wire)  # the one-shot round, bit for bit
-                elif not masked:
-                    # the fragile baseline: a dropped machine adds zeros, the
-                    # divisor stays m, corrupt payloads reach the mean
-                    bar = drv.mean(torch.where(drv.expand(live) > 0, wire, 0.0))
-                else:
-                    w = drv.screen(aggregation, wire)
-                    if faulted:
-                        w = live * w
-                    if aggregation.trim > 0:
-                        bar, den = faults_core.trimmed_mean(drv.stack(wire), drv.stack(w),
-                                                            aggregation.trim)
-                    else:
-                        # select, never multiply: 0 * NaN would re-poison the sum
-                        num = drv.sum(torch.where(drv.expand(w) > 0, wire, 0.0))
-                        den = drv.sum(w)
-                        bar = num / den.clamp_min(1.0)
-                    bar = torch.where(den > 0, bar, last_good)
-            else:
-                payload, new_resid = drv.ef(compression, beta_tilde, resid, ref)
+            with obs.span(ROUND_SPAN, marked):
+                compression = transport.up(t).comp
+                live = code = None
                 if faulted:
-                    # a dropped machine computed nothing: its carry is untouched;
-                    # corruption hits the wire, after the honest residual update
-                    resid = torch.where(drv.expand(live) > 0, new_resid, resid)
-                    payload = drv.corrupt_payload(compression, code, payload)
-                else:
-                    resid = new_resid
-                if not masked and not faulted:
-                    bar = drv.sparse_mean(compression, payload, ref)
-                else:
-                    stacked = drv.stack_payload(compression, payload)
-                    w_live = drv.stack(live) if faulted else None
-                    if masked:
-                        # decode raw: the screen must see the poison to zero the machine
-                        dense = compression_core.decode_stack(compression, stacked, ref,
-                                                              screen_nonfinite=False)
-                        w = faults_core.screen_weight(aggregation, dense)
-                        if w_live is not None:
-                            w = w_live * w
-                        if aggregation.trim > 0:
-                            bar, den = faults_core.trimmed_mean(dense, w, aggregation.trim)
+                    live, stale, code = plan.row(t)
+                a = history[-1]
+                if faulted and staleness > 0 and t > 1:
+                    a = faults_core.select_anchor(history, stale, t, staleness)
+                beta_tilde = drv.correction(a)
+                if compression is None:
+                    wire = drv.corrupt(code, beta_tilde) if faulted else beta_tilde
+                    with obs.span(AGGREGATE_SPAN, marked):
+                        if not masked and not faulted:
+                            bar = drv.mean(wire)  # the one-shot round, bit for bit
+                        elif not masked:
+                            # the fragile baseline: a dropped machine adds zeros, the
+                            # divisor stays m, corrupt payloads reach the mean
+                            bar = drv.mean(torch.where(drv.expand(live) > 0, wire, 0.0))
                         else:
-                            bar, den = faults_core.masked_mean(dense, w)
-                        bar = torch.where(den > 0, bar, last_good)
+                            w = drv.screen(aggregation, wire)
+                            if faulted:
+                                w = live * w
+                            if aggregation.trim > 0:
+                                bar, den = faults_core.trimmed_mean(drv.stack(wire), drv.stack(w),
+                                                                    aggregation.trim)
+                            else:
+                                # select, never multiply: 0 * NaN would re-poison the sum
+                                num = drv.sum(torch.where(drv.expand(w) > 0, wire, 0.0))
+                                den = drv.sum(w)
+                                bar = num / den.clamp_min(1.0)
+                            bar = torch.where(den > 0, bar, last_good)
+                else:
+                    payload, new_resid = drv.ef(compression, beta_tilde, resid, ref)
+                    if faulted:
+                        # a dropped machine computed nothing: its carry is untouched;
+                        # corruption hits the wire, after the honest residual update
+                        resid = torch.where(drv.expand(live) > 0, new_resid, resid)
+                        payload = drv.corrupt_payload(compression, code, payload)
                     else:
-                        # fragile baseline: a dropped machine's payload decodes to the
-                        # reference, still diluting the mean by the full m
-                        dense = compression_core.decode_stack(compression, stacked, ref)
-                        keep = (w_live > 0).reshape(w_live.shape + (1, 1))
-                        bar = torch.where(keep, dense, ref).mean(0)
-            # the downlink close: the aggregate back down the wire, EF-compressed
-            # against the same reference
-            down = transport.down(t)
-            if down.compressed:
-                u = bar + down_resid
-                payload = down.encode(u, ref)
-                wire = drv.downlink_wire(down.comp, payload, code)
-                decoded = down.decode(wire, ref, screen_nonfinite=False)
-                ok = torch.isfinite(decoded).all()
-                honest = down.decode(payload, ref, screen_nonfinite=False)
-                # rejected: drop the carry, the rolled-back anchors regenerate the step
-                down_resid = torch.where(ok, u - honest, torch.zeros_like(u))
-                bar = torch.where(ok, decoded, ref)
-            if transport.any_up or transport.any_down:
-                ref = bar  # the received aggregate seeds both wires' deltas
-            if masked:
-                last_good = bar
-            bars.append(bar)
-            history.append(drv.broadcast(bar))
+                        resid = new_resid
+                    with obs.span(AGGREGATE_SPAN, marked):
+                        if not masked and not faulted:
+                            bar = drv.sparse_mean(compression, payload, ref)
+                        else:
+                            stacked = drv.stack_payload(compression, payload)
+                            w_live = drv.stack(live) if faulted else None
+                            if masked:
+                                # decode raw: the screen must see the poison to zero the machine
+                                dense = compression_core.decode_stack(compression, stacked, ref,
+                                                                      screen_nonfinite=False)
+                                w = faults_core.screen_weight(aggregation, dense)
+                                if w_live is not None:
+                                    w = w_live * w
+                                if aggregation.trim > 0:
+                                    bar, den = faults_core.trimmed_mean(dense, w, aggregation.trim)
+                                else:
+                                    bar, den = faults_core.masked_mean(dense, w)
+                                bar = torch.where(den > 0, bar, last_good)
+                            else:
+                                # fragile baseline: a dropped machine's payload decodes to the
+                                # reference, still diluting the mean by the full m
+                                dense = compression_core.decode_stack(compression, stacked, ref)
+                                keep = (w_live > 0).reshape(w_live.shape + (1, 1))
+                                bar = torch.where(keep, dense, ref).mean(0)
+                # the downlink close: the aggregate back down the wire, EF-compressed
+                # against the same reference
+                down = transport.down(t)
+                if down.compressed:
+                    u = bar + down_resid
+                    payload = down.encode(u, ref)
+                    wire = drv.downlink_wire(down.comp, payload, code)
+                    decoded = down.decode(wire, ref, screen_nonfinite=False)
+                    ok = torch.isfinite(decoded).all()
+                    honest = down.decode(payload, ref, screen_nonfinite=False)
+                    # rejected: drop the carry, the rolled-back anchors regenerate the step
+                    down_resid = torch.where(ok, u - honest, torch.zeros_like(u))
+                    bar = torch.where(ok, decoded, ref)
+                if transport.any_up or transport.any_down:
+                    ref = bar  # the received aggregate seeds both wires' deltas
+                if masked:
+                    last_good = bar
+                bars.append(bar)
+                history.append(drv.broadcast(bar))
         out = torch.stack(bars) if return_all_rounds else bars[-1]
         return out, TransportState(resid if transport.any_up else None,
                                    down_resid if transport.any_down else None)

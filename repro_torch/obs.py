@@ -3,7 +3,12 @@
 The fit and the serving runtime mark their steps with :func:`span`:
 ``repro_torch.suff_stats``, ``.spectral_factor``, ``.solve.direction``,
 ``.solve.clime`` (or ``.solve.folded``, where the direction's columns
-ride in the CLIME launch), ``.debias`` and ``.rounds`` in a fit;
+ride in the CLIME launch), ``.debias`` and ``.rounds`` in a fit, and
+inside ``.rounds`` one ``repro_torch.rounds.round`` a refinement round,
+each around one ``repro_torch.rounds.aggregate`` (the screen, the
+masked, trimmed or dense mean and the last-good select), so that their
+numbers count the rounds executed (the one-shot round, T = 1 with the
+default plan, opens neither);
 ``repro_torch.classify``, ``.ingest`` (``.ingest.screen``,
 ``.ingest.merge``), ``.refresh``, ``.rung.warm`` / ``.cold`` /
 ``.refactor``, ``.verdict`` and ``.publish`` in serving; and
@@ -38,8 +43,9 @@ from torch.profiler import record_function
 _OFF = contextlib.nullcontext()
 
 
-def span(name: str):
-    """A context that marks ``name`` in the profiler's trace while one records; else a no-op."""
-    if _profiler._is_profiler_enabled:
+def span(name: str, on: bool = True):
+    """A context that marks ``name`` in the profiler's trace while one records and ``on`` holds;
+    else a no-op."""
+    if on and _profiler._is_profiler_enabled:
         return record_function(name)
     return _OFF

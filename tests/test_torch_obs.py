@@ -8,9 +8,12 @@ from torch.profiler import ProfilerActivity, profile
 
 import test_torch_parity  # noqa: F401  (pins torch to one thread)
 from repro_torch import obs
-from repro_torch.core import distributed, pipeline
+from repro_torch.core import distributed, pipeline, rounds
 from repro_torch.core import streaming as st
+from repro_torch.core.compression import Compression
 from repro_torch.core.dantzig import DantzigConfig
+from repro_torch.core.faults import Aggregation, FaultPlan
+from repro_torch.core.transport import CommPlan
 from repro_torch.stats import synthetic
 
 D = 16
@@ -80,6 +83,38 @@ def test_a_fit_marks_its_steps():
     spans = _profiled(_fit)
     assert [name for name, _ in spans] == FIT_SPANS
     assert all(parent is None for _, parent in spans)
+
+
+def _refined(comm, faulted: bool, t: int):
+    prob, gen = _problem()
+    m = 4
+    xs, ys = synthetic.sample_machines(gen, prob, m, 40, 40, device="cpu")
+    plan = None
+    if faulted:
+        live = torch.ones(m, t)
+        live[1, 0] = 0.0  # machine 1 misses round 1
+        zeros = torch.zeros(m, t, dtype=torch.int32)
+        plan = FaultPlan(live, zeros, zeros)
+    return rounds.simulate_multi_round(pipeline.BinaryHead(), (xs, ys), lam=LAM, lam_prime=LAM,
+                                       rounds=t, cfg=DantzigConfig(max_iters=60), comm=comm,
+                                       faults=plan, return_all_rounds=True)
+
+
+@pytest.mark.parametrize("comm,faulted,t", [
+    (None, False, 3),
+    (CommPlan(aggregation=Aggregation()), True, 3),
+    (CommPlan(uplink=Compression(4, "int8"), aggregation=Aggregation()), True, 2),
+    (CommPlan(aggregation=Aggregation()), False, 1),
+], ids=["dense", "masked", "compressed", "masked_one_round"])
+def test_each_refinement_round_marks_its_one_aggregate(comm, faulted, t):
+    spans = _profiled(lambda: _refined(comm, faulted, t))
+    names = [name for name, _ in spans]
+    assert names.count("repro_torch.rounds") == 1
+    assert [(n, p) for n, p in spans if n.startswith("repro_torch.rounds.")] == [
+        ("repro_torch.rounds.round", "repro_torch.rounds"),
+        ("repro_torch.rounds.aggregate", "repro_torch.rounds.round")] * t
+    # the one-shot fit (one round, the default plan) opens neither
+    assert not any(n.startswith("repro_torch.rounds.") for n, _ in _profiled(_fit))
 
 
 def test_the_serving_runtime_nests_its_steps():
